@@ -1,22 +1,12 @@
 """Format conversion routines (host-side).
 
 See :mod:`spgpu_tpu.convert.host` for the NumPy implementations and the
-reference-parity notes (SURVEY §2.3).  When the optional C++ acceleration
-(:mod:`spgpu_tpu.native`) is built, the hot inner loops are dispatched
-there transparently.
+reference-parity notes (SURVEY §2.3), :mod:`~spgpu_tpu.convert.sdia` for
+the static-offset DIA layout and :mod:`~spgpu_tpu.convert.select` for the
+automatic format choice.
 """
 
-from spgpu_tpu.convert.whell import (
-    coo_to_whell,
-    degree_sort_perm,
-    local_degree_perm,
-    symmetric_relabel,
-    whell_update_values,
-)
-from spgpu_tpu.convert.pcell import coo_to_whell_percell
 from spgpu_tpu.convert.sdia import coo_to_sdia, dia_to_sdia
-from spgpu_tpu.convert.whdia import coo_to_whdia
-from spgpu_tpu.convert.hybrid import coo_to_hybrid, hybrid_split_stats
 from spgpu_tpu.convert.select import estimate_formats, suggest_format
 from spgpu_tpu.convert.host import (
     bcoo_to_bhdia,
@@ -41,19 +31,10 @@ from spgpu_tpu.convert.host import (
 )
 
 __all__ = [
-    "coo_to_whell",
-    "coo_to_whell_percell",
     "coo_to_sdia",
     "dia_to_sdia",
-    "coo_to_whdia",
-    "coo_to_hybrid",
-    "hybrid_split_stats",
-    "degree_sort_perm",
-    "local_degree_perm",
     "estimate_formats",
     "suggest_format",
-    "whell_update_values",
-    "symmetric_relabel",
     "bcoo_to_bhdia",
     "compute_bcoo_size",
     "compute_dia_alloc_pitch",

@@ -1,6 +1,6 @@
 """Host-side format conversions (COO → ELL/OELL/HELL/DIA/HDIA/BCOO/BHDIA).
 
-TPU-native re-design of the reference's single-threaded C/C++ conversion
+Re-design of the reference's single-threaded C/C++ conversion
 routines (SURVEY §2.3; ``/root/reference/src/core/{ell.c,hell.c,dia.c,
 hdia.cpp,coo.cpp}``).  Where the reference walks elements one at a time
 with per-row cursors and ``std::map`` buckets, we vectorise everything
@@ -22,10 +22,11 @@ Semantics preserved from the reference:
 * **OELL ordering**: rows sorted by descending length with a *stable*
   order (the reference uses merge sort, ``ell.c:85-157``).
 
-TPU-motivated deviations (documented per function): row axes padded to
-128 lanes, slot axes padded to the dtype sublane multiple, hack size
-defaults to 128 (vs 32), ``hack_offsets`` carries a prefix-sum sentinel,
-and HELL/HDIA gain a ``slot_to_hack`` map for segment-sum SpMV.
+Deviations (documented per function): row axes padded to
+:data:`~spgpu_tpu.core.ROW_PITCH` elements (vs 32), ``hack_offsets``
+carries a prefix-sum sentinel, and HELL/HDIA gain a ``slot_to_hack`` map
+for segment-sum SpMV.  float64/complex128 values need 64-bit JAX
+(:func:`~spgpu_tpu.core.require_x64`).
 """
 
 from __future__ import annotations
@@ -34,7 +35,8 @@ from typing import Optional
 
 import numpy as np
 
-from spgpu_tpu.core import DEFAULT_HACK_SIZE, LANES, round_up, sublanes
+from spgpu_tpu.core import (
+    HDIA_HACK_SIZE, HELL_HACK_SIZE, ROW_PITCH, require_x64, round_up)
 from spgpu_tpu.formats import (
     BcooMatrix,
     BhdiaMatrix,
@@ -81,8 +83,8 @@ def compute_ell_row_lengths(coo: CooMatrix) -> np.ndarray:
 
 def compute_ell_alloc_pitch(n_rows: int) -> int:
     """Row-axis padding; mirrors ``computeEllAllocPitch`` (``ell.c:33-37``)
-    — the reference rounds to 32 threads, we round to 128 lanes."""
-    return round_up(max(n_rows, 1), LANES)
+    — the reference rounds to 32 elements, we round to ``ROW_PITCH``."""
+    return round_up(max(n_rows, 1), ROW_PITCH)
 
 
 def compute_dia_diagonals_count(coo: CooMatrix) -> int:
@@ -93,19 +95,19 @@ def compute_dia_diagonals_count(coo: CooMatrix) -> int:
     return int(np.unique(coo.cols - coo.rows).size)
 
 
-def get_hdia_hacks_count(n_rows: int, hack_size: int = DEFAULT_HACK_SIZE) -> int:
+def get_hdia_hacks_count(n_rows: int, hack_size: int = HDIA_HACK_SIZE) -> int:
     """Mirrors ``getHdiaHacksCount`` (``hdia.cpp:8-11``)."""
     return -(-n_rows // hack_size)
 
 
 def compute_dia_alloc_pitch(n_rows: int) -> int:
     """Row-axis padding for DIA; mirrors ``computeDiaAllocPitch``
-    (``dia.c:5-9``) — the reference rounds to 32, we round to 128 lanes."""
-    return round_up(max(n_rows, 1), LANES)
+    (``dia.c:5-9``) — the reference rounds to 32, we round to ``ROW_PITCH``."""
+    return round_up(max(n_rows, 1), ROW_PITCH)
 
 
 def compute_hdia_hack_offsets_from_coo(
-    coo: CooMatrix, hack_size: int = DEFAULT_HACK_SIZE
+    coo: CooMatrix, hack_size: int = HDIA_HACK_SIZE
 ) -> np.ndarray:
     """Per-hack occupied-diagonal-count prefix sum; mirrors
     ``computeHdiaHackOffsetsFromCoo`` (``hdia.cpp:161-228``).  Returns a
@@ -128,7 +130,7 @@ def compute_hdia_hack_offsets_from_coo(
 
 
 def compute_hdia_hack_offsets(
-    dia: DiaMatrix, hack_size: int = DEFAULT_HACK_SIZE
+    dia: DiaMatrix, hack_size: int = HDIA_HACK_SIZE
 ) -> np.ndarray:
     """Per-hack occupied-diagonal prefix sum from a DIA matrix; mirrors
     ``computeHdiaHackOffsets`` (``hdia.cpp:13-61``) — a diagonal counts
@@ -143,7 +145,7 @@ def compute_hdia_hack_offsets(
     return off
 
 
-def coo_to_hdia_size(coo: CooMatrix, hack_size: int = DEFAULT_HACK_SIZE) -> int:
+def coo_to_hdia_size(coo: CooMatrix, hack_size: int = HDIA_HACK_SIZE) -> int:
     """Stored-element count of the HDIA conversion; mirrors
     ``cooToHdiaSize`` (``hdia.cpp:230-249``)."""
     return int(compute_hdia_hack_offsets_from_coo(coo, hack_size)[-1]) * hack_size
@@ -189,9 +191,10 @@ def coo_to_ell(
     ``max_nnz_per_row`` long with zero padding — which our zero-padded
     layout satisfies by construction.
     """
+    require_x64(coo.dtype)
     counts = coo.row_lengths()
     max_nnz = int(counts.max()) if counts.size and coo.nnz else 0
-    width_p = round_up(max(max_nnz, 1), sublanes(coo.dtype))
+    width_p = max(max_nnz, 1)
     rows_p = compute_ell_alloc_pitch(coo.n_rows)
 
     vals = np.zeros((width_p, rows_p), dtype=coo.dtype)
@@ -255,29 +258,27 @@ def ell_to_oell(ell: EllMatrix) -> EllMatrix:
 
 
 def compute_hell_alloc_size(
-    counts: np.ndarray, n_rows: int, hack_size: int, dtype=np.float32
+    counts: np.ndarray, n_rows: int, hack_size: int = HELL_HACK_SIZE
 ) -> int:
-    """Σ per-hack padded max row length; mirrors ``computeHellAllocSize``
-    (``hell.c:4-44``), with sublane padding instead of raw widths."""
-    w = _hack_widths(counts, n_rows, hack_size, dtype)
+    """Σ per-hack max row length; mirrors ``computeHellAllocSize``
+    (``hell.c:4-44``)."""
+    w = _hack_widths(counts, n_rows, hack_size)
     return int(w.sum())
 
 
-def _hack_widths(counts, n_rows, hack_size, dtype) -> np.ndarray:
+def _hack_widths(counts, n_rows, hack_size) -> np.ndarray:
     rows_p = round_up(max(n_rows, 1), hack_size)
     lens = np.zeros(rows_p, dtype=np.int64)
     lens[:n_rows] = counts[:n_rows]
     w = lens.reshape(-1, hack_size).max(axis=1)
-    sl = sublanes(dtype)
-    w = ((w + sl - 1) // sl) * sl
     if w.sum() == 0:
-        w[0] = sl  # avoid zero-sized device arrays for empty matrices
+        w[0] = 1  # avoid zero-sized device arrays for empty matrices
     return w
 
 
 def coo_to_hell(
     coo: CooMatrix,
-    hack_size: int = DEFAULT_HACK_SIZE,
+    hack_size: int = HELL_HACK_SIZE,
     row_perm: Optional[np.ndarray] = None,
 ) -> HellMatrix:
     """COO → HELL directly (the reference route is COO→ELL→HELL,
@@ -289,6 +290,7 @@ def coo_to_hell(
     *before* hacking so each hack holds similar-length rows — the
     reference's ``hellperf`` OELL+HELL leg.
     """
+    require_x64(coo.dtype)
     if row_perm is not None:
         # invert stored→original into original→stored, route entries to
         # their stored row before hacking (hacked-OELL).
@@ -304,7 +306,7 @@ def coo_to_hell(
         counts = coo.row_lengths()
         n_stored_rows = coo.n_rows
 
-    w = _hack_widths(counts, n_stored_rows, hack_size, coo.dtype)
+    w = _hack_widths(counts, n_stored_rows, hack_size)
     num_hacks = w.size
     hack_off = np.zeros(num_hacks + 1, dtype=np.int32)
     np.cumsum(w, out=hack_off[1:])
@@ -350,7 +352,7 @@ def coo_to_hell(
     )
 
 
-def ell_to_hell(ell: EllMatrix, hack_size: int = DEFAULT_HACK_SIZE) -> HellMatrix:
+def ell_to_hell(ell: EllMatrix, hack_size: int = HELL_HACK_SIZE) -> HellMatrix:
     """ELL → HELL; mirrors ``ellToHell`` (``hell.c:46-104``).
 
     Carries the ELL's ``row_perm`` through unchanged (OELL → hacked-OELL,
@@ -363,7 +365,7 @@ def ell_to_hell(ell: EllMatrix, hack_size: int = DEFAULT_HACK_SIZE) -> HellMatri
     ecols = np.asarray(ell.col_indices)
     rows_p0 = evals.shape[1]
 
-    w = _hack_widths(lens, rows_p0, hack_size, ell.dtype)
+    w = _hack_widths(lens, rows_p0, hack_size)
     num_hacks = w.size
     hack_off = np.zeros(num_hacks + 1, dtype=np.int32)
     np.cumsum(w, out=hack_off[1:])
@@ -421,12 +423,12 @@ def coo_to_dia(coo: CooMatrix) -> DiaMatrix:
     ascending by offset id; duplicate coordinates last-write-wins."""
     import jax.numpy as jnp
 
+    require_x64(coo.dtype)
     rows_p = compute_ell_alloc_pitch(coo.n_rows)
     if coo.nnz == 0:
-        sl = sublanes(coo.dtype)
         return DiaMatrix(
-            values=jnp.zeros((sl, rows_p), dtype=coo.dtype),
-            offsets=jnp.full((sl,), coo.n_cols, dtype=np.int32),
+            values=jnp.zeros((1, rows_p), dtype=coo.dtype),
+            offsets=jnp.full((1,), coo.n_cols, dtype=np.int32),
             n_rows=coo.n_rows,
             n_cols=coo.n_cols,
             n_diags=0,
@@ -434,17 +436,14 @@ def coo_to_dia(coo: CooMatrix) -> DiaMatrix:
     offs_all = coo.cols - coo.rows
     uniq = np.unique(offs_all)
     n_diags = int(uniq.size)
-    diags_p = round_up(n_diags, sublanes(coo.dtype))
 
-    vals = np.zeros((diags_p, rows_p), dtype=coo.dtype)
+    vals = np.zeros((n_diags, rows_p), dtype=coo.dtype)
     j = np.searchsorted(uniq, offs_all)
     vals[j, coo.rows] = coo.values  # duplicates: last write wins (dia.c:95-100)
 
-    offsets = np.full(diags_p, coo.n_cols, dtype=np.int32)
-    offsets[:n_diags] = uniq
     return DiaMatrix(
         values=jnp.asarray(vals),
-        offsets=jnp.asarray(offsets),
+        offsets=jnp.asarray(uniq.astype(np.int32)),
         n_rows=coo.n_rows,
         n_cols=coo.n_cols,
         n_diags=n_diags,
@@ -476,11 +475,9 @@ def _build_hdia(
     uo = (uniq_keys % span + off0).astype(np.int64)
 
     counts = np.bincount(uh, minlength=num_hacks)  # diags per hack
-    sl = sublanes(dtype)
-    w = ((counts + sl - 1) // sl) * sl
+    w = counts.copy()
     if w.sum() == 0:
-        w = w.copy()
-        w[0] = sl
+        w[0] = 1
     hack_off = np.zeros(num_hacks + 1, dtype=np.int32)
     np.cumsum(w, out=hack_off[1:])
     total = int(hack_off[-1])
@@ -501,7 +498,7 @@ def _build_hdia(
     return vals, offsets, hack_off, s2h, total, max_diags
 
 
-def coo_to_hdia(coo: CooMatrix, hack_size: int = DEFAULT_HACK_SIZE) -> HdiaMatrix:
+def coo_to_hdia(coo: CooMatrix, hack_size: int = HDIA_HACK_SIZE) -> HdiaMatrix:
     """COO → HDIA directly; mirrors ``cooToHdia`` +
     ``computeHdiaHackOffsetsFromCoo`` (``hdia.cpp:161-348``).
 
@@ -512,20 +509,20 @@ def coo_to_hdia(coo: CooMatrix, hack_size: int = DEFAULT_HACK_SIZE) -> HdiaMatri
     """
     import jax.numpy as jnp
 
+    require_x64(coo.dtype)
     num_hacks = max(get_hdia_hacks_count(coo.n_rows, hack_size), 1)
     if coo.nnz == 0:
-        sl = sublanes(coo.dtype)
         return HdiaMatrix(
-            values=jnp.zeros((sl, hack_size), dtype=coo.dtype),
-            offsets=jnp.full((sl,), coo.n_cols, dtype=np.int32),
+            values=jnp.zeros((1, hack_size), dtype=coo.dtype),
+            offsets=jnp.full((1,), coo.n_cols, dtype=np.int32),
             hack_offsets=jnp.asarray(
-                np.concatenate([[0], np.full(num_hacks, sl)]).astype(np.int32)
+                np.concatenate([[0], np.full(num_hacks, 1)]).astype(np.int32)
             ),
-            slot_to_hack=jnp.zeros((sl,), dtype=np.int32),
+            slot_to_hack=jnp.zeros((1,), dtype=np.int32),
             n_rows=coo.n_rows,
             n_cols=coo.n_cols,
             hack_size=hack_size,
-            total_slots=sl,
+            total_slots=1,
             max_hack_diags=0,
         )
 
@@ -552,7 +549,7 @@ def coo_to_hdia(coo: CooMatrix, hack_size: int = DEFAULT_HACK_SIZE) -> HdiaMatri
     )
 
 
-def dia_to_hdia(dia: DiaMatrix, hack_size: int = DEFAULT_HACK_SIZE) -> HdiaMatrix:
+def dia_to_hdia(dia: DiaMatrix, hack_size: int = HDIA_HACK_SIZE) -> HdiaMatrix:
     """DIA → HDIA; mirrors ``computeHdiaHackOffsets`` + ``diaToHdia``
     (``hdia.cpp:13-153``): a (hack, diagonal) block is kept iff it contains
     any nonzero value (byte-occupancy scan in the reference) — explicit
@@ -617,6 +614,7 @@ def coo_to_bcoo(coo: CooMatrix, block_rows: int, block_cols: int) -> BcooMatrix:
     block cell, matching the reference's plain store."""
     import jax.numpy as jnp
 
+    require_x64(coo.dtype)
     brow = coo.rows // block_rows
     bcol = coo.cols // block_cols
     nbc = -(-coo.n_cols // block_cols)

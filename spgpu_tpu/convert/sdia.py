@@ -1,18 +1,17 @@
-"""COO/DIA → SDIA (static-offset DIA, the stencil-matrix compute layout).
+"""COO/DIA → SDIA (static-offset DIA, the stencil-matrix layout).
 
-SDIA is to DIA what WHELL is to HELL: a TPU-shaped re-layout of the same
-matrix.  The reference reaches peak DIA throughput by staging the offset
-list in shared memory per block (``dia_spmv_base_template.cuh:35-49``);
-the TPU equivalent compiles the offsets *into* the kernel (they become
-static slice/rotate amounts), so the conversion's job is only to pre-tile
-the diagonal planes into ``(n_diags, n_tiles*8, 128)`` row-tile-major
-form and to surface the offsets as Python ints.
+The reference reaches peak DIA throughput by staging the offset list in
+shared memory per block (``dia_spmv_base_template.cuh:35-49``); SDIA
+compiles the offsets *into* the program instead (they become static slice
+starts), so the conversion's job is only to lay out the diagonal planes
+``(n_diags, n_rows)`` and to surface the offsets as Python ints.
 """
 
 from __future__ import annotations
 
 import numpy as np
 
+from spgpu_tpu.core import require_x64
 from spgpu_tpu.formats.coo import CooMatrix
 from spgpu_tpu.formats.dia import DiaMatrix, SdiaMatrix
 
@@ -22,27 +21,11 @@ __all__ = ["coo_to_sdia", "dia_to_sdia"]
 def _planes_to_sdia(vals, offsets, n_rows, n_cols) -> SdiaMatrix:
     import jax.numpy as jnp
 
-    n_diags = vals.shape[0]
-    # tiles of 1024 rows, rounded to a multiple of 16 so the kernel's
-    # preferred chunk_tiles always divides (extra tiles are zero planes)
-    n_tiles = -(-max(1, -(-n_rows // 1024)) // 16) * 16
-    is_dd = np.dtype(vals.dtype) == np.float64
-    dt = np.float32 if is_dd else vals.dtype
-    planes = np.zeros((max(n_diags, 1), n_tiles * 1024), dtype=vals.dtype)
-    ncopy = min(vals.shape[1], n_tiles * 1024)
-    planes[:n_diags, :ncopy] = vals[:, :ncopy]
-    shape3 = (max(n_diags, 1), n_tiles * 8, 128)
-    lo = None
-    if is_dd:
-        hi = planes.astype(np.float32)
-        lo = (planes - hi).astype(np.float32)
-        planes = hi
     return SdiaMatrix(
-        values=jnp.asarray(planes.reshape(shape3).astype(dt)),
+        values=jnp.asarray(vals),
         offsets=tuple(int(o) for o in offsets),
         n_rows=n_rows,
         n_cols=n_cols,
-        values_lo=None if lo is None else jnp.asarray(lo.reshape(shape3)),
     )
 
 
@@ -51,35 +34,17 @@ def coo_to_sdia(coo: CooMatrix) -> SdiaMatrix:
     (``dia.c:40-104``): diagonals ascending by offset id, duplicate
     coordinates last-write-wins (coalesce with ``sum_duplicates()``
     first if duplicates should add)."""
-    if np.issubdtype(coo.values.dtype, np.complexfloating):
-        # C/Z: two real-plane conversions of identical structure
-        # (formats/cplanes.py) — dia_cspmv.cu:28/dia_zspmv.cu parity
-        from spgpu_tpu.formats.cplanes import ComplexPlanes
-
-        real_dt = (np.float64 if coo.values.dtype == np.complex128
-                   else np.float32)
-        mk = lambda v: coo_to_sdia(
-            CooMatrix(coo.rows, coo.cols, v.astype(real_dt),
-                      coo.n_rows, coo.n_cols))
-        return ComplexPlanes(ar=mk(np.real(coo.values)),
-                             ai=mk(np.imag(coo.values)),
-                             n_rows=coo.n_rows, n_cols=coo.n_cols,
-                             nnz=coo.nnz)
-    if coo.nnz == 0:
-        return _planes_to_sdia(
-            np.zeros((0, 0), dtype=coo.dtype), (), coo.n_rows, coo.n_cols)
+    require_x64(coo.dtype)
     offs_all = coo.cols - coo.rows
     uniq = np.unique(offs_all)
-    n_tiles = -(-max(1, -(-coo.n_rows // 1024)) // 16) * 16
-    planes = np.zeros((uniq.size, n_tiles * 1024), dtype=coo.dtype)
-    j = np.searchsorted(uniq, offs_all)
-    planes[j, coo.rows] = coo.values
+    planes = np.zeros((uniq.size, coo.n_rows), dtype=coo.dtype)
+    planes[np.searchsorted(uniq, offs_all), coo.rows] = coo.values
     return _planes_to_sdia(planes, uniq, coo.n_rows, coo.n_cols)
 
 
 def dia_to_sdia(a: DiaMatrix) -> SdiaMatrix:
     """DIA → SDIA: drop the padding diagonals (offset ``n_cols``,
-    zero-valued) and re-tile the real planes."""
-    vals = np.asarray(a.values)[: a.n_diags]
+    zero-valued) and the row padding."""
+    vals = np.asarray(a.values)[: a.n_diags, : a.n_rows]
     offs = np.asarray(a.offsets)[: a.n_diags]
     return _planes_to_sdia(vals, offs, a.n_rows, a.n_cols)

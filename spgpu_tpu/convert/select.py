@@ -4,9 +4,9 @@ The reference leaves format choice to the caller, with one runtime
 fallback: ``diaPerf`` checks whether the dense DIA slab fits device
 memory and skips to HDIA when it doesn't
 (``/root/reference/src/tests/diaPerf.cpp:174-183``).  This module makes
-that decision a first-class, testable API: estimate each format's padded
-footprint from cheap COO statistics and pick the layout whose Pallas/XLA
-path will move the fewest bytes per product.
+that decision a first-class, testable API: SpMV is bound by memory
+traffic, so estimate each format's bytes per product from cheap COO
+statistics and pick the layout that moves the fewest.
 """
 
 from __future__ import annotations
@@ -16,122 +16,80 @@ from typing import Dict
 
 import numpy as np
 
+from spgpu_tpu.core import HDIA_HACK_SIZE, HELL_HACK_SIZE, ROW_PITCH, round_up
 from spgpu_tpu.formats.coo import CooMatrix
 
-__all__ = ["FormatEstimate", "estimate_formats", "suggest_format"]
+__all__ = ["FormatEstimate", "estimate_formats", "suggest_format",
+           "SDIA_MAX_DIAGS"]
+
+#: SDIA unrolls one static slice per diagonal into the compiled program;
+#: past this many diagonals the DIA class runs :class:`DiaMatrix` instead.
+SDIA_MAX_DIAGS = 64
 
 
 @dataclasses.dataclass
 class FormatEstimate:
     fmt: str
-    bytes_per_product: float  # slab traffic per SpMV (value+index bytes)
-    pad_factor: float
+    bytes_per_product: float  # matrix traffic per SpMV (values + indices)
+    pad_factor: float  # stored cells / nnz
 
     def json(self):
         return dataclasses.asdict(self)
 
 
-def estimate_formats(coo: CooMatrix, itemsize: int = 4) -> Dict[str, FormatEstimate]:
-    """Cheap COO-statistics estimates of per-product slab traffic.
+def estimate_formats(coo: CooMatrix) -> Dict[str, FormatEstimate]:
+    """Cheap COO-statistics estimates of per-product matrix traffic.
 
-    * DIA: distinct diagonals × padded rows (dense diagonal slab);
-    * WHDIA: per-(hack, diagonal) occupancy, values-only traffic;
-    * WHELL: per-(hack, superpage) group widths, 6 B/cell;
-    * ELL: global max row length (the format WHELL/HELL exist to beat).
+    * DIA: distinct diagonals × padded rows, values only;
+    * HDIA: distinct (hack, diagonal) pairs × hack size, values only
+      (plus 8 B of offset and hack id per slot);
+    * HELL: per-hack max row length × hack size, value + int32 column
+      (plus 4 B of hack id per slot);
+    * ELL: global max row length × padded rows, value + int32 column.
+
+    Dictionary order breaks ties: the index-free layouts come first.
     """
     n, m = coo.n_rows, coo.nnz
     if m == 0:
-        z = FormatEstimate("ell", 0.0, 1.0)
-        return {"ell": z}
-    rows_p = -(-n // 128) * 128
+        return {"ell": FormatEstimate("ell", 0.0, 1.0)}
+    isz = coo.values.dtype.itemsize
+    rows_p = round_up(n, ROW_PITCH)
     lens = coo.row_lengths()
     diag = coo.cols - coo.rows
-    hack = coo.rows // 128
 
     out: Dict[str, FormatEstimate] = {}
 
-    # ELL: width = max row length
-    w = int(lens.max())
-    cells = w * rows_p
-    out["ell"] = FormatEstimate("ell", cells * (itemsize + 4), cells / m)
+    cells = np.unique(diag).size * rows_p
+    out["dia"] = FormatEstimate("dia", cells * isz, cells / m)
 
-    # DIA: every distinct diagonal stored dense
-    ndiag = np.unique(diag).size
-    cells = ndiag * rows_p
-    out["dia"] = FormatEstimate("dia", cells * itemsize, cells / m)
-
-    # WHDIA: distinct (hack, diagonal) pairs × 128 lanes, values only.
     # diag spans [-(n-1), n_cols-1]: bias by n and pack with span n+n_cols
     # so keys stay collision-free for rectangular shapes.
-    occ = np.unique(hack.astype(np.int64) * (n + coo.n_cols) + (diag + n),
-                    return_counts=True)[1]
-    hd = occ.size
-    cells = hd * 128
-    out["whdia"] = FormatEstimate("whdia", cells * itemsize, cells / m)
+    hs = HDIA_HACK_SIZE
+    slots = np.unique((coo.rows // hs).astype(np.int64) * (n + coo.n_cols)
+                      + (diag + n)).size
+    cells = slots * hs
+    out["hdia"] = FormatEstimate("hdia", cells * isz + slots * 8, cells / m)
 
-    # HYBRID (HYB-class, round 5): entries on diagonals filling >= tau
-    # of a hack's 128 lanes -> values-only WHDIA, rest -> packed WHELL
-    # (modeled at the measured flagship pad 1.74).  Admissible only
-    # when some threshold captures >= 25% of entries.  NOTE: the
-    # estimate is a TRAFFIC model only — chip-REFUTED as a selection
-    # target (doc/DESIGN.md §2i): on mixed banded+irregular fixtures
-    # the hybrid moved 0.7x the bytes of pure packed WHELL but ran
-    # 0.68x the speed (rest-part raggedness inflates 2.4->3.8 pad, the
-    # lane-space crossing costs ~0.11 ms/product, and two kernels
-    # pipeline worse than one) — :func:`suggest_format` therefore never
-    # returns "hybrid"; the estimate row stays for tooling/evidence.
-    if coo.n_rows == coo.n_cols:
-        best = None
-        for t in (16, 32, 48, 64, 96, 128):
-            sel = occ >= t
-            bn = int(occ[sel].sum())
-            if bn < 0.25 * m:
-                continue
-            bcells = int(sel.sum()) * 128
-            rcells = (m - bn) * 1.74
-            by = (bcells * itemsize + rcells * (itemsize + 2)
-                  + n * 2 * itemsize)
-            if best is None or by < best[0]:
-                best = (by, bcells + rcells)
-        if best is not None:
-            out["hybrid"] = FormatEstimate("hybrid", best[0], best[1] / m)
+    hs = HELL_HACK_SIZE
+    w = np.zeros(round_up(n, hs), np.int64)
+    w[:n] = lens
+    slots = int(w.reshape(-1, hs).max(axis=1).sum())
+    cells = slots * hs
+    out["hell"] = FormatEstimate("hell", cells * (isz + 4) + slots * 4,
+                                 cells / m)
 
-    # WHELL: classic-layout cells — sum over (hack, superpage) groups of
-    # max-per-row count × 128 — scaled by the measured packed-layout
-    # ratio (proportional lane segments + 32-page windows cut the
-    # power-law raggedness ~2.2x on the profiles measured; BASELINE.md)
-    nsp = max(-(-coo.n_cols // 1024), 1)
-    G = hack * nsp + coo.cols // 1024
-    key = G * n + coo.rows
-    _, cnt = np.unique(key, return_counts=True)
-    # group widths: max count per group
-    gq = np.unique(key) // n
-    o = np.argsort(gq, kind="stable")
-    gs, cs = gq[o], cnt[o]
-    grp = np.r_[True, gs[1:] != gs[:-1]]
-    gid = np.cumsum(grp) - 1
-    W = np.zeros(gid[-1] + 1, dtype=np.int64)
-    np.maximum.at(W, gid, cs)
-    cells = int((-(-W // 8) * 8).sum()) * 128
-    # packed-lane layout recovers ~54% of the classic layout's
-    # RAGGEDNESS EXCESS over nnz (measured on power-law FEM profiles,
-    # BASELINE.md).  Applied to the excess only: a flat 0.46x predicted
-    # pad < 1 on regular banded matrices and stole them from the
-    # (3x faster there) DIA-class layouts.
-    cells = m + int(max(cells - m, 0) * 0.46)
-    out["whell"] = FormatEstimate("whell", cells * (itemsize + 2), cells / m)
-
+    cells = int(lens.max()) * rows_p
+    out["ell"] = FormatEstimate("ell", cells * (isz + 4), cells / m)
     return out
 
 
-def suggest_format(coo: CooMatrix, itemsize: int = 4) -> str:
-    """Pick the format with the least per-product slab traffic — the
-    TPU analogue of diaPerf's DIA-fits-in-memory fallback.
-
-    "hybrid" is excluded: its traffic model under-prices the two-space
-    crossing and second-kernel dispatch, which chip measurements show
-    dominate (DESIGN §2i — hybrid lost to pure packed WHELL on every
-    mixed fixture measured despite moving ~0.7x the bytes)."""
-    est = estimate_formats(coo, itemsize)
-    return min((e for k, e in est.items() if k != "hybrid"),
-               key=lambda e: e.bytes_per_product).fmt
+def suggest_format(coo: CooMatrix) -> str:
+    """The layout :func:`~spgpu_tpu.solvers.solve` builds: the format
+    with the least per-product traffic, with the DIA class as SDIA while
+    it has at most :data:`SDIA_MAX_DIAGS` diagonals.  Returns one of
+    ``"sdia"``, ``"dia"``, ``"hdia"``, ``"hell"``, ``"ell"``."""
+    est = estimate_formats(coo)
+    fmt = min(est.values(), key=lambda e: e.bytes_per_product).fmt
+    if fmt == "dia" and np.unique(coo.cols - coo.rows).size <= SDIA_MAX_DIAGS:
+        return "sdia"
+    return fmt

@@ -1,15 +1,14 @@
-"""Core runtime: context, type registry, tiling constants, status codes.
+"""Core runtime: context, type registry, layout constants, status codes.
 
-TPU-native re-design of the reference's context layer
+Re-design of the reference's context layer
 (``/root/reference/src/core/core.h:43-138``, ``core.c:11-99``):
 
 * The reference caches CUDA device properties (warpSize, maxGridSize, SM
   count, compute capability) in a ``SpgpuHandleStruct`` and launches every
-  kernel on ``handle->currentStream``.  On TPU the analogous per-device facts
-  are the *tile geometry* (128 lanes, dtype-dependent sublane count), the
-  VMEM budget, and the HBM bandwidth used for roofline accounting — all of
-  which live in :class:`Context`.
-* CUDA streams have no user-visible TPU equivalent (XLA owns scheduling);
+  kernel on ``handle->currentStream``.  Here XLA compiles and launches the
+  kernels, so :class:`Context` only records the JAX device (and optionally
+  a mesh for the distributed layer).
+* CUDA streams are not exposed by JAX (XLA owns scheduling);
   ``stream_create``/``set_stream`` are kept as documented no-op shims for
   API parity with ``spgpuStreamCreate``/``spgpuSetStream``
   (``core.c:50-80``).
@@ -48,7 +47,7 @@ class TypeCode(enum.IntEnum):
     DOUBLE = 2
     COMPLEX_FLOAT = 3
     COMPLEX_DOUBLE = 4
-    # TPU extension: not present in the reference, first-class on TPU.
+    # Extension: not present in the reference.
     BFLOAT16 = 5
 
 
@@ -77,24 +76,14 @@ def dtype_of(code: TypeCode):
 
 
 # ---------------------------------------------------------------------------
-# TPU tiling constants
+# Layout constants
 # ---------------------------------------------------------------------------
 
-#: Vector lane count — the last-dimension tile size on every TPU generation.
-LANES = 128
-
-#: Minimum sublane count (second-to-last dim) per element width.
-_SUBLANES_BY_ITEMSIZE = {8: 8, 4: 8, 2: 16, 1: 32}
-
-
-def sublanes(dtype) -> int:
-    """Minimum sublane multiple for ``dtype`` on TPU.
-
-    fp32 → 8, bf16 → 16, int8/fp8 → 32.  fp64/complex are stored as pairs of
-    32-bit words by XLA:TPU so 8 is the correct (and safe) multiple; on CPU
-    the value is only used for padding and any multiple works.
-    """
-    return _SUBLANES_BY_ITEMSIZE.get(np.dtype(dtype).itemsize, 8)
+#: Row-axis pitch of the slot-major formats (ELL, DIA): rows are padded to
+#: a multiple of 128 elements, a whole number of 128-byte memory
+#: transactions for every dtype.  The reference pads to 32 elements
+#: (``ell.c:33-37``, ``ell.h:24``).
+ROW_PITCH = 128
 
 
 def round_up(x: int, m: int) -> int:
@@ -105,56 +94,31 @@ def cdiv(a: int, b: int) -> int:
     return -(-a // b)
 
 
-#: Pallas kernel grid unit: tiles (of 8 slots) per grid step.  Bigger
-#: chunks amortise per-grid-step overhead (~0.3-0.5 us measured on v5e)
-#: against group slab padding (slot counts round up to a chunk) and
-#: Mosaic compile time (the kernels unroll CHUNK_TILES bodies; 128
-#: pushes the compile past 10 minutes).  Measured on the fem bench:
-#: 8 -> 147 GB/s, 32 -> 203 GB/s, 64 -> 240 GB/s effective.
-CHUNK_TILES = 64
+#: Default rows per hack of HELL.  The reference requires a multiple of its
+#: warp size 32 and uses 32 (``hell.h:30-33``).  Measured on an H100
+#: (PERF.md, bring-up): a power-law FEM matrix pads 6.1x at 32 against
+#: 12.6x at 128, and its SpMV runs 2.4x faster.
+HELL_HACK_SIZE = 32
 
-#: WHDIA's grid unit: its slabs are values-only (less per-chunk traffic
-#: to amortise) and banded 32-hack groups are ~64 tiles, so 32 measures
-#: better (banded 1M: 22.9 vs 22.1 GFLOPS; 500k b31: 31.1 vs 29.2).
-WHDIA_CHUNK_TILES = 32
-
-#: Default hack size: one full lane vector of rows per hack.  The reference
-#: requires a multiple of its warp size 32 and uses 32 in practice
-#: (``hell.h:30-33``); on TPU the natural unit is the 128-lane vector.
-DEFAULT_HACK_SIZE = 128
-
-#: Pitch alignment parity: the reference rounds leading dimensions up to 32
-#: elements and 128 bytes (``ell.c:33-37``, ``ell.h:24``).  We round the row
-#: axis up to LANES and the slot axis up to ``sublanes(dtype)``.
+#: Default rows per hack of HDIA.  HDIA pads only per diagonal, so wider
+#: hacks cost little padding and mean fewer slots to reduce over (measured
+#: on an H100, PERF.md: 128 beats 32 by 7-12% on banded and stencil
+#: matrices).
+HDIA_HACK_SIZE = 128
 
 
-# ---------------------------------------------------------------------------
-# HBM bandwidth table for roofline accounting (GB/s per chip)
-# ---------------------------------------------------------------------------
+def require_x64(dtype) -> None:
+    """Raise when 64-bit values would silently become 32-bit on device.
 
-HBM_BW_BY_KIND = {
-    # device_kind substrings → bytes/s
-    "v5 lite": 819e9,   # TPU v5e
-    "v5e": 819e9,
-    "v5p": 2765e9,
-    "v5": 1228e9,       # fallback if only "v5" matches
-    "v4": 1228e9,
-    "v6 lite": 1638e9,  # TPU v6e (Trillium)
-    "v6e": 1638e9,
-    "v3": 900e9,
-    "v2": 700e9,
-}
-
-
-def hbm_bandwidth(device=None) -> Optional[float]:
-    """Best-effort HBM bandwidth (bytes/s) of ``device`` for rooflines."""
-    if device is None:
-        device = jax.devices()[0]
-    kind = getattr(device, "device_kind", "").lower()
-    for key, bw in HBM_BW_BY_KIND.items():
-        if key in kind:
-            return bw
-    return None
+    With ``jax_enable_x64`` off, ``jnp.asarray`` turns float64/complex128
+    host arrays into float32/complex64 (with only a warning).  Conversions
+    and solvers call this first so such inputs fail loudly instead."""
+    dt = np.dtype(dtype)
+    if dt in (np.float64, np.complex128) and not jax.config.jax_enable_x64:
+        raise ValueError(
+            f"{dt} values need 64-bit JAX: call "
+            "jax.config.update('jax_enable_x64', True) before building "
+            "the matrix, or pass float32/complex64 values")
 
 
 # ---------------------------------------------------------------------------
@@ -164,13 +128,13 @@ def hbm_bandwidth(device=None) -> Optional[float]:
 
 @dataclasses.dataclass
 class Context:
-    """Per-device context; TPU analogue of ``spgpuHandle_t``.
+    """Per-device context; analogue of ``spgpuHandle_t``.
 
     Mirrors ``spgpuCreate`` (``core.c:11-41``), which caches device
-    properties and a default stream.  Here we cache the JAX device, its tile
-    geometry and bandwidth, and (optionally) a device mesh for the
-    distributed layer — the TPU-native replacement for the reference's
-    bring-your-own-thread multi-GPU story (SURVEY §2.6).
+    properties and a default stream.  Here we keep the JAX device and
+    (optionally) a device mesh for the distributed layer — the
+    replacement for the reference's bring-your-own-thread multi-GPU story
+    (SURVEY §2.6).
     """
 
     device: object = None
@@ -184,21 +148,10 @@ class Context:
     def platform(self) -> str:
         return self.device.platform
 
-    @property
-    def lanes(self) -> int:
-        return LANES
-
-    def sublanes(self, dtype) -> int:
-        return sublanes(dtype)
-
-    @property
-    def hbm_bandwidth(self) -> Optional[float]:
-        return hbm_bandwidth(self.device)
-
     # -- stream shims (parity with core.c:50-80; XLA owns scheduling) -------
 
     def stream_create(self):
-        """No-op shim for ``spgpuStreamCreate`` — XLA owns TPU scheduling."""
+        """No-op shim for ``spgpuStreamCreate`` — XLA owns scheduling."""
         return None
 
     def set_stream(self, stream):

@@ -1,16 +1,14 @@
-"""Sparse matrix storage formats (TPU-native layouts).
+"""Sparse matrix storage formats.
 
 Re-designs of the reference's caller-owned device-buffer formats
 (SURVEY §2.2; ``/root/reference/src/core/{ell,hell,dia,hdia}.h``) as JAX
-pytree dataclasses.  The common layout decision, and the single biggest
-departure from the CUDA code: the reference stores values **column-major
-with a 32-element pitch** so that consecutive GPU threads (one per row)
-read consecutive addresses (``ell.h:26-61``, ``ell.c:33-37``).  The TPU
-equivalent of "consecutive threads" is the 128-wide vector lane axis, so we
-store every format **slot-major**: shape ``(slots, rows_padded)`` with rows
-on the lane (last) axis padded to 128 and slots padded to the dtype's
-sublane multiple.  One (8×128) tile then holds 8 nnz-slots of 128 adjacent
-rows — the exact analogue of the coalesced column-major ELL walk.
+pytree dataclasses.  The reference stores values **column-major with a
+32-element pitch** so that consecutive GPU threads (one per row) read
+consecutive addresses (``ell.h:26-61``, ``ell.c:33-37``).  The same
+decision holds here: every format is **slot-major**, shape
+``(slots, rows_padded)``, with rows on the contiguous last axis padded to
+:data:`~spgpu_tpu.core.ROW_PITCH` — each slot of consecutive rows is one
+coalesced read.
 """
 
 from spgpu_tpu.formats.coo import CooMatrix
@@ -19,12 +17,8 @@ from spgpu_tpu.formats.hell import HellMatrix
 from spgpu_tpu.formats.dia import DiaMatrix, SdiaMatrix
 from spgpu_tpu.formats.hdia import HdiaMatrix
 from spgpu_tpu.formats.bcoo import BcooMatrix, BhdiaMatrix
-from spgpu_tpu.formats.whell import WhellMatrix
-from spgpu_tpu.formats.whdia import WhdiaMatrix
-from spgpu_tpu.formats.hybrid import HybridMatrix
 
 __all__ = [
-    "HybridMatrix",
     "CooMatrix",
     "EllMatrix",
     "HellMatrix",
@@ -33,6 +27,4 @@ __all__ = [
     "HdiaMatrix",
     "BcooMatrix",
     "BhdiaMatrix",
-    "WhellMatrix",
-    "WhdiaMatrix",
 ]

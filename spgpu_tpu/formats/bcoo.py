@@ -6,7 +6,7 @@ The reference ships conversions for these but **no SpMV kernel**
 exists only as a line in the unused ``src/CMakeLists.txt.new`` — SURVEY
 §2.2).  We mirror that scope: block formats + conversions + dense
 round-trip tests; block SpMV is provided via densified per-block matmul in
-``ops.bcoo_spmv`` as a TPU bonus (blocks are MXU food).
+``ops.bcoo_spmv`` as an extension (one batched dense block product).
 
 Layout: blocks are stored row-major as ``(n_blocks, block_rows,
 block_cols)`` (the reference stores column-major dense blocks,

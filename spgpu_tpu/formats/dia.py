@@ -6,13 +6,12 @@ diagonal's offset ``col - row`` ordered ascending (``dia.c:76-85``), and
 an in-kernel column bound check for out-of-range ends of off-diagonals
 (``dia_spmv_base_template.cuh:133-135``).
 
-TPU layout: ``values`` has shape ``(diags_padded, rows_padded)`` —
-diagonal-major with rows on the lane axis, so element
+Layout: ``values`` has shape ``(diags_padded, rows_padded)`` —
+diagonal-major with rows on the contiguous last axis, so element
 ``(row i, diag j)`` = ``A[i, i + offsets[j]]`` lives at ``values[j, i]``.
-SpMV needs **no gather**: diagonal ``j``'s x-operand is the contiguous
-shifted slice ``x[i + offsets[j]]`` — ideal for the TPU vector unit.
-Padding diagonals carry ``offset = n_cols`` (always out of range, masked
-to zero in-kernel).
+Diagonal ``j``'s x-operand is the shifted range ``x[i + offsets[j]]``.
+Padding diagonals (the one an empty matrix keeps) carry
+``offset = n_cols`` (always out of range, masked to zero in-kernel).
 """
 
 from __future__ import annotations
@@ -69,30 +68,26 @@ class DiaMatrix:
 @jax.tree_util.register_dataclass
 @dataclasses.dataclass
 class SdiaMatrix:
-    """Static-offset DIA — the TPU compute layout for stencil matrices.
+    """Static-offset DIA — DIA with the offsets in the compiled program.
 
-    The reference ships dedicated DIA SpMV kernels whose device loop
-    walks shared-memory-staged diagonal offsets
-    (``dia_spmv_base_template.cuh:35-49,133-135``).  The TPU-native
-    answer bakes the offsets into the *compiled program* instead: they
-    are static Python ints, so each diagonal's x operand lowers to one
-    sublane-aligned dynamic slice plus one static lane rotation — no
-    gather, no offset table, no bound check (out-of-range cells are
-    zero in ``values`` by construction, and the padded x margins are
-    zero).  Recompilation happens per offset *tuple*, which for the
-    stencil matrices this format targets is fixed across a solve.
+    The reference's DIA kernel stages the offset list in shared memory
+    per block and bound-checks every column
+    (``dia_spmv_base_template.cuh:35-49,133-135``).  Here the offsets are
+    static Python ints, so each diagonal's x operand is a static slice of
+    a zero-padded x: no offset table, no index stream, no gather and no
+    bound check (out-of-range cells are zero in ``values`` by
+    construction).  Recompilation happens per offset *tuple*, which for
+    the stencil matrices this format targets is fixed across a solve.
 
-    ``values`` planes are pre-tiled ``(n_diags, n_tiles*8, 128)`` with
-    row ``i`` at ``[j, i // 128, i % 128]`` (row-major lane-fastest,
-    tiles of 1024 rows), so the kernel streams them with zero reshaping.
+    ``values`` has shape ``(n_diags, n_rows)`` in the matrix's own dtype:
+    row ``i`` of diagonal ``j`` (``A[i, i + offsets[j]]``) at
+    ``values[j, i]``.
     """
 
-    values: jax.Array  # (n_diags, n_tiles*8, 128)
+    values: jax.Array  # (n_diags, n_rows)
     offsets: tuple = dataclasses.field(metadata=dict(static=True))
     n_rows: int = dataclasses.field(metadata=dict(static=True))
     n_cols: int = dataclasses.field(metadata=dict(static=True))
-    #: double-float low planes (float64 input split hi/lo fp32; ops/dd.py)
-    values_lo: "jax.Array | None" = None
 
     @property
     def shape(self):
@@ -103,33 +98,19 @@ class SdiaMatrix:
         return self.values.dtype
 
     @property
-    def is_dd(self) -> bool:
-        return self.values_lo is not None
-
-    @property
     def n_diags(self) -> int:
         return len(self.offsets)
 
     @property
-    def n_tiles(self) -> int:
-        return self.values.shape[1] // 8
-
-    @property
     def storage_bytes(self) -> int:
-        n = int(self.values.size * self.values.dtype.itemsize)
-        if self.values_lo is not None:
-            n += int(self.values_lo.size * self.values_lo.dtype.itemsize)
-        return n
+        return int(self.values.size * self.values.dtype.itemsize)
 
     def to_dense(self) -> np.ndarray:
-        vals = np.asarray(self.values).reshape(max(self.n_diags, 1), -1)
-        if self.values_lo is not None:
-            vals = vals.astype(np.float64) + np.asarray(
-                self.values_lo).reshape(vals.shape)
+        vals = np.asarray(self.values)
         out = np.zeros((self.n_rows, self.n_cols), dtype=vals.dtype)
         rows = np.arange(self.n_rows)
         for j, off in enumerate(self.offsets):
             cols = rows + off
             sel = (cols >= 0) & (cols < self.n_cols)
-            out[rows[sel], cols[sel]] = vals[j, : self.n_rows][sel]
+            out[rows[sel], cols[sel]] = vals[j][sel]
         return out

@@ -1,4 +1,4 @@
-"""ELLpack (ELL) and ordered-ELL (OELL) — TPU slot-major layout.
+"""ELLpack (ELL) and ordered-ELL (OELL) — slot-major layout.
 
 Reference definition: ``/root/reference/src/core/ell.h:26-61`` — values
 ``cM`` column-major with pitch, column indices ``rP``, per-row lengths
@@ -8,11 +8,10 @@ and an optional row permutation ``rIdx`` that makes the matrix an OELL
 (rows stored sorted by descending length, kernel scatters to
 ``z[rIdx[i]]`` — ``ell_spmv_base_template.cuh:274-282``).
 
-TPU layout (see ``formats/__init__.py``): ``values``/``col_indices`` have
-shape ``(width_padded, rows_padded)`` — slot-major, rows on the 128-lane
+Layout (see ``formats/__init__.py``): ``values``/``col_indices`` have
+shape ``(width, rows_padded)`` — slot-major, rows on the contiguous last
 axis.  Element ``(row i, slot k)`` lives at ``values[k, i]``; the
-reference's ``cM[i + k*cMPitch]`` with the pitch axis replaced by the lane
-axis.  Padding entries carry ``col_index == 0`` and ``value == 0`` so a
+reference's ``cM[i + k*cMPitch]``.  Padding entries carry ``col_index == 0`` and ``value == 0`` so a
 full-width multiply contributes exactly zero (the reference instead stops
 the per-row loop at ``rS[i]``; we keep ``row_lengths`` for the masked
 kernels and for conversions).

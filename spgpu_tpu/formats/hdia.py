@@ -7,8 +7,7 @@ layout built in ``hdia.cpp:68-153``: rows are grouped into hacks of
 ``hdia.h:33-40``), killing DIA's empty-diagonal padding for banded
 matrices whose band wanders.
 
-TPU layout: ``hack_size`` defaults to 128 (one lane vector of rows).
-``values`` has shape ``(total_slots, hack_size)``; hack ``h`` owns slot
+Layout: ``values`` has shape ``(total_slots, hack_size)``; hack ``h`` owns slot
 rows ``hack_offsets[h] : hack_offsets[h+1]``; slot ``s`` stores the
 diagonal with *global* offset ``offsets[s] = col - row`` restricted to
 hack ``h``'s rows, i.e. value ``A[i, i + offsets[s]]`` lives at
@@ -24,7 +23,7 @@ differs, and the global form lets the kernel compute the x slice start as
 
 Like HELL we add a conversion-time ``slot_to_hack`` map so the XLA SpMV
 path is a single gather + multiply + ``segment_sum``.  Padding slots
-(sublane alignment) carry ``offset = n_cols`` and zero values.
+(the one an empty matrix keeps) carry ``offset = n_cols`` and zero values.
 """
 
 from __future__ import annotations

@@ -5,12 +5,10 @@ layout built in ``hell.c:46-104``: rows are grouped into "hacks" of
 ``hackSize`` rows; each hack is stored as its own mini-ELL padded only to
 *its own* max row length, killing ELL's global-width padding blow-up.
 
-TPU layout: ``hack_size`` defaults to 128 so one hack maps exactly onto
-the lane axis.  ``values``/``col_indices`` have shape
-``(total_slots, hack_size)``; hack ``h`` owns slot rows
-``hack_offsets[h] : hack_offsets[h+1]`` (each hack's slot count is padded
-to the dtype's sublane multiple, so every hack block is a whole number of
-(sublane × 128) tiles).  Element ``(row i, slot k)`` lives at
+Layout: ``values``/``col_indices`` have shape ``(total_slots,
+hack_size)``; hack ``h`` owns slot rows ``hack_offsets[h] :
+hack_offsets[h+1]``, as many as its longest row.  Element ``(row i, slot
+k)`` lives at
 ``values[hack_offsets[i // hack_size] + k, i % hack_size]`` — the direct
 analogue of the reference's
 ``cM[hackOffsets[i/hackSize] + i%hackSize + k*hackSize]``.

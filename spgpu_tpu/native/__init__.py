@@ -1,11 +1,11 @@
-"""Native (C++) acceleration for conversion inner loops.
+"""Native (C++) Matrix Market tokenizer.
 
 The reference's runtime around the CUDA kernels is C/C++
-(``/root/reference/src/core/*.c``); the analogous native component here
-is the sequential greedy tile-chunking scans of the WHELL/WHDIA layout
-builders, compiled from :file:`conversion.cpp` on first use with the
-system ``g++`` and bound via :mod:`ctypes`.  Everything degrades
-gracefully to the pure-NumPy/Python path when no compiler is available
+(``/root/reference/src/core/*.c``, ``src/utils/mmread.cpp``); the native
+component here is the parallel strict tokenizer behind
+:func:`spgpu_tpu.io.read_mm`, compiled from :file:`mm_parse.cpp` on first
+use with the system ``g++`` and bound via :mod:`ctypes`.  Everything
+degrades gracefully to the pure-NumPy path when no compiler is available
 (``SPGPU_TPU_NO_NATIVE=1`` forces the fallback).
 """
 
@@ -18,14 +18,13 @@ import threading
 
 import numpy as np
 
-__all__ = ["available", "whell_assign", "whell_chunk_tiles", "whdia_tile",
-           "whell_hack_fill", "mm_parse"]
+__all__ = ["available", "mm_parse"]
 
 _lock = threading.Lock()
 _lib = None
 _tried = False
 
-_SRC = os.path.join(os.path.dirname(__file__), "conversion.cpp")
+_SRC = os.path.join(os.path.dirname(__file__), "mm_parse.cpp")
 _SO = os.path.join(os.path.dirname(__file__), "_libspgpu_native.so")
 
 
@@ -40,58 +39,22 @@ def _load():
         try:
             if (not os.path.exists(_SO)
                     or os.path.getmtime(_SO) < os.path.getmtime(_SRC)):
-                try:  # OpenMP for the parallel assign/scatter passes
+                tmp = f"{_SO}.{os.getpid()}.tmp"  # concurrent test workers
+                try:  # OpenMP for the parallel chunk parse
                     subprocess.run(
                         ["g++", "-O3", "-shared", "-fPIC", "-fopenmp",
-                         _SRC, "-o", _SO + ".tmp"],
+                         _SRC, "-o", tmp],
                         check=True, capture_output=True, timeout=120,
                     )
                 except subprocess.CalledProcessError:
                     subprocess.run(
                         ["g++", "-O3", "-shared", "-fPIC", _SRC,
-                         "-o", _SO + ".tmp"],
+                         "-o", tmp],
                         check=True, capture_output=True, timeout=120,
                     )
-                os.replace(_SO + ".tmp", _SO)
+                os.replace(tmp, _SO)
             lib = ctypes.CDLL(_SO)
             i64p = ctypes.POINTER(ctypes.c_int64)
-            lib.whell_chunk_tiles.restype = ctypes.c_int64
-            lib.whell_chunk_tiles.argtypes = [i64p, i64p, ctypes.c_int64,
-                                              ctypes.c_int64, i64p, i64p, i64p]
-            lib.whell_assign.restype = None
-            lib.whell_assign.argtypes = [i64p, i64p, i64p, i64p,
-                                         ctypes.c_int64, i64p]
-            lib.whdia_tile.restype = ctypes.c_int64
-            lib.whdia_tile.argtypes = [i64p, i64p, ctypes.c_int64,
-                                       ctypes.c_int64, i64p, i64p, i64p, i64p]
-            lib.whell_hack_fill.restype = ctypes.c_int64
-            lib.whell_hack_fill.argtypes = [i64p, ctypes.c_int64,
-                                            ctypes.c_int64, i64p, i64p]
-            lib.whell_assign_seg.restype = None
-            lib.whell_assign_seg.argtypes = [i64p, i64p, i64p, i64p, i64p,
-                                             i64p, ctypes.c_int64, i64p, i64p]
-            i8p = ctypes.POINTER(ctypes.c_int8)
-            i32p = ctypes.POINTER(ctypes.c_int32)
-            lib.whell_gather_assign.restype = ctypes.c_int64
-            lib.whell_gather_assign.argtypes = [
-                i64p, i64p, i32p, i64p, i64p, i64p,
-                ctypes.c_int64, ctypes.c_int64, ctypes.c_int64,
-                i64p, i64p, i8p, i8p, i64p, i64p, i64p]
-            lib.whell_gather_assign2.restype = ctypes.c_int64
-            lib.whell_gather_assign2.argtypes = [
-                i64p, i64p, i32p, i64p, i64p, i64p, i8p,
-                ctypes.c_int64,
-                i64p, i64p, i8p, i8p, i64p, i64p, i64p]
-            lib.whell_gather_assign_par.restype = ctypes.c_int64
-            lib.whell_gather_assign_par.argtypes = [
-                i64p, i64p, i32p, i64p, i64p, i8p, i64p,
-                ctypes.c_int64,
-                i64p, i64p, i8p, i64p, i64p]
-            lib.whell_scatter_slabs.restype = None
-            lib.whell_scatter_slabs.argtypes = [
-                i64p, ctypes.c_void_p, i64p, i64p, i64p, i64p, i8p, i8p,
-                ctypes.c_int64, ctypes.c_int64,
-                ctypes.c_void_p, i8p, i8p, i64p]
             lib.mm_parse.restype = ctypes.c_int64
             lib.mm_parse.argtypes = [
                 ctypes.c_char_p, ctypes.c_int64, ctypes.c_int64,
@@ -109,221 +72,6 @@ def available() -> bool:
 
 def _p(a: np.ndarray):
     return a.ctypes.data_as(ctypes.POINTER(ctypes.c_int64))
-
-
-def whell_chunk_tiles(sp: np.ndarray, sh: np.ndarray, base_cap: int):
-    """Native greedy tiling; returns (new_slot, tile_base, tile_hack)
-    or None when the native library is unavailable."""
-    lib = _load()
-    if lib is None:
-        return None
-    n = sp.size
-    sp = np.ascontiguousarray(sp, dtype=np.int64)
-    sh = np.ascontiguousarray(sh, dtype=np.int64)
-    new_slot = np.empty(n, dtype=np.int64)
-    tb = np.empty(max(n, 1), dtype=np.int64)
-    th = np.empty(max(n, 1), dtype=np.int64)
-    nt = lib.whell_chunk_tiles(_p(sp), _p(sh), n, base_cap,
-                               _p(new_slot), _p(tb), _p(th))
-    return new_slot, tb[:nt], th[:nt]
-
-
-def whdia_tile(slot_hack: np.ndarray, slot_diag: np.ndarray, spread: int):
-    """Native greedy HDIA tiling; returns (tile_of_slot, pos_of_slot,
-    tile_hack, tile_d0) or None when unavailable."""
-    lib = _load()
-    if lib is None:
-        return None
-    n = slot_hack.size
-    sh = np.ascontiguousarray(slot_hack, dtype=np.int64)
-    sd = np.ascontiguousarray(slot_diag, dtype=np.int64)
-    tos = np.empty(n, dtype=np.int64)
-    pos = np.empty(n, dtype=np.int64)
-    th = np.empty(max(n, 1), dtype=np.int64)
-    td = np.empty(max(n, 1), dtype=np.int64)
-    nt = lib.whdia_tile(_p(sh), _p(sd), n, spread, _p(tos), _p(pos),
-                        _p(th), _p(td))
-    return tos, pos, th[:nt], td[:nt]
-
-
-def whell_hack_fill(d: np.ndarray, cap: int = 128):
-    """Native greedy weighted row→hack binning; returns
-    (num_hacks, hack_of_row, lane_start) or None when unavailable."""
-    lib = _load()
-    if lib is None:
-        return None
-    n = d.size
-    d = np.ascontiguousarray(d, dtype=np.int64)
-    hof = np.empty(n, dtype=np.int64)
-    ls = np.empty(n, dtype=np.int64)
-    nh = lib.whell_hack_fill(_p(d), n, cap, _p(hof), _p(ls))
-    return int(nh), hof, ls
-
-
-def whell_assign_seg(G, row, seg0, segw, res, dlt):
-    """Capacity-aware first-fit for packed-lane WHELL; returns
-    (slot, lane) per entry or None when unavailable."""
-    lib = _load()
-    if lib is None:
-        return None
-    m = G.size
-    args = [np.ascontiguousarray(a, dtype=np.int64)
-            for a in (G, row, seg0, segw, res, dlt)]
-    slot = np.empty(m, dtype=np.int64)
-    lane = np.empty(m, dtype=np.int64)
-    lib.whell_assign_seg(*[_p(a) for a in args], m, _p(slot), _p(lane))
-    return slot, lane
-
-
-def whell_gather_assign(order, rows, cols_l, d, lane_start, hack_of_row,
-                        nwin: int, w: int):
-    """Fused gather + first-fit + group widths for packed WHELL.
-
-    Returns (ngroups, slot, lane, res8, del8, gid, gW, gG) with the
-    m-sized outputs in sorted-entry order, or None when unavailable."""
-    lib = _load()
-    if lib is None:
-        return None
-    m = order.size
-    order = np.ascontiguousarray(order, dtype=np.int64)
-    rows = np.ascontiguousarray(rows, dtype=np.int64)
-    cols_l = np.ascontiguousarray(cols_l, dtype=np.int32)
-    d = np.ascontiguousarray(d, dtype=np.int64)
-    lane_start = np.ascontiguousarray(lane_start, dtype=np.int64)
-    hack_of_row = np.ascontiguousarray(hack_of_row, dtype=np.int64)
-    slot = np.empty(m, dtype=np.int64)
-    lane = np.empty(m, dtype=np.int64)
-    res8 = np.empty(m, dtype=np.int8)
-    del8 = np.empty(m, dtype=np.int8)
-    gid = np.empty(m, dtype=np.int64)
-    gW = np.empty(max(m, 1), dtype=np.int64)
-    gG = np.empty(max(m, 1), dtype=np.int64)
-    i8 = ctypes.POINTER(ctypes.c_int8)
-    i32 = ctypes.POINTER(ctypes.c_int32)
-    ng = lib.whell_gather_assign(
-        _p(order), _p(rows), cols_l.ctypes.data_as(i32), _p(d),
-        _p(lane_start), _p(hack_of_row), m, nwin, w,
-        _p(slot), _p(lane),
-        res8.ctypes.data_as(i8), del8.ctypes.data_as(i8),
-        _p(gid), _p(gW), _p(gG))
-    return int(ng), slot, lane, res8, del8, gid, gW[:ng], gG[:ng]
-
-
-def whell_gather_assign2(order, rows, cols_l, d, lane_start, G, dlt):
-    """Scattered-window fused gather + first-fit (per-entry group keys
-    and page deltas precomputed by the caller).
-
-    Returns (ngroups, slot, lane, res8, del8, gid, gW, gG) in
-    sorted-entry order, or None when unavailable."""
-    lib = _load()
-    if lib is None:
-        return None
-    m = order.size
-    order = np.ascontiguousarray(order, dtype=np.int64)
-    rows = np.ascontiguousarray(rows, dtype=np.int64)
-    cols_l = np.ascontiguousarray(cols_l, dtype=np.int32)
-    d = np.ascontiguousarray(d, dtype=np.int64)
-    lane_start = np.ascontiguousarray(lane_start, dtype=np.int64)
-    G = np.ascontiguousarray(G, dtype=np.int64)
-    dlt = np.ascontiguousarray(dlt, dtype=np.int8)
-    slot = np.empty(m, dtype=np.int64)
-    lane = np.empty(m, dtype=np.int64)
-    res8 = np.empty(m, dtype=np.int8)
-    del8 = np.empty(m, dtype=np.int8)
-    gid = np.empty(m, dtype=np.int64)
-    gW = np.empty(max(m, 1), dtype=np.int64)
-    gG = np.empty(max(m, 1), dtype=np.int64)
-    i8 = ctypes.POINTER(ctypes.c_int8)
-    i32 = ctypes.POINTER(ctypes.c_int32)
-    ng = lib.whell_gather_assign2(
-        _p(order), _p(rows), cols_l.ctypes.data_as(i32), _p(d),
-        _p(lane_start), _p(G), dlt.ctypes.data_as(i8), m,
-        _p(slot), _p(lane),
-        res8.ctypes.data_as(i8), del8.ctypes.data_as(i8),
-        _p(gid), _p(gW), _p(gG))
-    return int(ng), slot, lane, res8, del8, gid, gW[:ng], gG[:ng]
-
-
-def whell_gather_assign_par(order, rows, cols_l, d, lane_start, dlt, starts):
-    """Parallel (OpenMP) fused gather + first-fit over precomputed group
-    boundaries (``starts``: [ngroups+1] sorted-entry offsets).
-
-    Returns (slot, lane, res8, gid, gW) in sorted-entry order, or None
-    when unavailable."""
-    lib = _load()
-    if lib is None:
-        return None
-    m = order.size
-    order = np.ascontiguousarray(order, dtype=np.int64)
-    rows = np.ascontiguousarray(rows, dtype=np.int64)
-    cols_l = np.ascontiguousarray(cols_l, dtype=np.int32)
-    d = np.ascontiguousarray(d, dtype=np.int64)
-    lane_start = np.ascontiguousarray(lane_start, dtype=np.int64)
-    dlt = np.ascontiguousarray(dlt, dtype=np.int8)
-    starts = np.ascontiguousarray(starts, dtype=np.int64)
-    ngroups = starts.size - 1
-    slot = np.empty(m, dtype=np.int64)
-    lane = np.empty(m, dtype=np.int64)
-    res8 = np.empty(m, dtype=np.int8)
-    gid = np.empty(m, dtype=np.int64)
-    gW = np.empty(max(ngroups, 1), dtype=np.int64)
-    i8 = ctypes.POINTER(ctypes.c_int8)
-    i32 = ctypes.POINTER(ctypes.c_int32)
-    lib.whell_gather_assign_par(
-        _p(order), _p(rows), cols_l.ctypes.data_as(i32), _p(d),
-        _p(lane_start), dlt.ctypes.data_as(i8), _p(starts), ngroups,
-        _p(slot), _p(lane), res8.ctypes.data_as(i8), _p(gid), _p(gW))
-    return slot, lane, res8, gid, gW
-
-
-def whell_scatter_slabs(order, vals, g_tile0, gid, k, lane, res, dlt,
-                        total_slots: int):
-    """Parallel slab scatter into freshly-zeroed (total_slots, 128)
-    value/residue/page-table slabs; slot = g_tile0[gid]*8 + k computed
-    in-loop.  Returns (vals, res8, pt8, slot) or None when unavailable.
-    Cells are distinct by construction (race-free)."""
-    lib = _load()
-    if lib is None:
-        return None
-    m = order.size
-    order = np.ascontiguousarray(order, dtype=np.int64)
-    vals = np.ascontiguousarray(vals)
-    g_tile0 = np.ascontiguousarray(g_tile0, dtype=np.int64)
-    gid = np.ascontiguousarray(gid, dtype=np.int64)
-    k = np.ascontiguousarray(k, dtype=np.int64)
-    lane = np.ascontiguousarray(lane, dtype=np.int64)
-    res = np.ascontiguousarray(res, dtype=np.int8)
-    dlt = np.ascontiguousarray(dlt, dtype=np.int8)
-    vslab = np.zeros((total_slots, 128), dtype=vals.dtype)
-    rslab = np.zeros((total_slots, 128), dtype=np.int8)
-    pslab = np.zeros((total_slots, 128), dtype=np.int8)
-    slot = np.empty(m, dtype=np.int64)
-    i8 = ctypes.POINTER(ctypes.c_int8)
-    lib.whell_scatter_slabs(
-        _p(order), ctypes.c_void_p(vals.ctypes.data), _p(g_tile0),
-        _p(gid), _p(k),
-        _p(lane), res.ctypes.data_as(i8), dlt.ctypes.data_as(i8),
-        m, vals.dtype.itemsize,
-        ctypes.c_void_p(vslab.ctypes.data),
-        rslab.ctypes.data_as(i8), pslab.ctypes.data_as(i8), _p(slot))
-    return vslab, rslab, pslab, slot
-
-
-def whell_assign(G: np.ndarray, lane: np.ndarray, res: np.ndarray,
-                 dlt: np.ndarray):
-    """Native first-fit slot assignment; returns per-entry slot indices
-    (within their group) or None when the native library is unavailable."""
-    lib = _load()
-    if lib is None:
-        return None
-    m = G.size
-    G = np.ascontiguousarray(G, dtype=np.int64)
-    lane = np.ascontiguousarray(lane, dtype=np.int64)
-    res = np.ascontiguousarray(res, dtype=np.int64)
-    dlt = np.ascontiguousarray(dlt, dtype=np.int64)
-    out = np.empty(m, dtype=np.int64)
-    lib.whell_assign(_p(G), _p(lane), _p(res), _p(dlt), m, _p(out))
-    return out
 
 
 def mm_parse(buf: bytes, ntok: int, nnz: int):

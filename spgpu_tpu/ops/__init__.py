@@ -1,314 +1,45 @@
-"""Compute ops: SpMV/SpMM dispatchers, BLAS-1 suite, csput.
+"""Compute ops: SpMV dispatch, BLAS-1 suite, csput.
 
-Each SpMV has two implementations:
+Every SpMV is a plain ``jnp`` program (:mod:`spgpu_tpu.ops.spmv_xla`) that
+XLA compiles for the device at hand, in every dtype.  Each accepts
+multi-RHS ``x`` with leading batch dims ``(..., n_cols) → (..., n_rows)``
+(the reference's "m" host loop, fused).
 
-* ``impl="xla"`` — portable jnp program (all dtypes, CPU+TPU); the
-  semantic reference.  :mod:`spgpu_tpu.ops.spmv_xla`.
-* ``impl="pallas"`` — hand-tiled TPU kernel for the hot formats/dtypes.
-  :mod:`spgpu_tpu.ops.pallas_kernels`.
-
-``impl="auto"`` picks Pallas on TPU when the (format, dtype) pair is
-covered, else XLA — the TPU analogue of the reference's per-matrix variant
-dispatcher (vanilla/prefetch/texcache selection by avg nnz/row and compute
-capability, ``ell_spmv_base.cuh:122-143``).
+Public names follow the reference (``spgpu{S,D,C,Z}<fmt>spmv`` →
+``<fmt>_spmv``, dtype taken from the values); :func:`spmv` dispatches on
+the matrix type.
 """
 
 from __future__ import annotations
 
 import jax
 
-from spgpu_tpu.formats import BcooMatrix, DiaMatrix, EllMatrix, HdiaMatrix, HellMatrix
+from spgpu_tpu.formats import (
+    BcooMatrix, DiaMatrix, EllMatrix, HdiaMatrix, HellMatrix, SdiaMatrix)
 from spgpu_tpu.ops import blas1
 from spgpu_tpu.ops.blas1 import *  # noqa: F401,F403  (re-export BLAS-1 suite)
 from spgpu_tpu.ops.csput import ell_csput, hell_csput
 from spgpu_tpu.ops.spmv_xla import (
-    dia_spmv_xla,
-    ell_spmv_xla,
-    hdia_spmv_xla,
-    hell_spmv_xla,
+    dia_spmv_xla as dia_spmv,
+    ell_spmv_xla as ell_spmv,
+    hdia_spmv_xla as hdia_spmv,
+    hell_spmv_xla as hell_spmv,
+    sdia_spmv_xla as sdia_spmv,
 )
 
 __all__ = [
     "spmv",
-    "ell_spmv", "hell_spmv", "dia_spmv", "hdia_spmv", "bcoo_spmv",
-    "whell_spmv", "whell_spmm", "whdia_spmv", "whdia_spmm",
-    "sdia_spmv", "sdia_spmm", "hybrid_spmv",
+    "ell_spmv", "hell_spmv", "dia_spmv", "sdia_spmv", "hdia_spmv",
+    "bcoo_spmv",
     "ell_csput", "hell_csput",
 ] + blas1.__all__
 
 
-def _on_tpu() -> bool:
-    try:
-        return jax.default_backend() == "tpu"
-    except Exception:
-        return False
-
-
-def _dd_pair(val) -> tuple:
-    """Scalar -> (hi, lo) fp32 dd pair.  Python floats keep full fp64
-    precision.  Traced scalars: an explicit ``(hi, lo)`` tuple passes
-    through; a traced float64 word is split on-device (hi = fp32 cast,
-    lo = remainder — exact, so jitted CPU/x64 callers keep dd
-    precision); a traced fp32 word is already exact with lo = 0."""
-    import numpy as np
-
-    if isinstance(val, tuple) and len(val) == 2:
-        import jax.numpy as jnp
-
-        return (jnp.asarray(val[0], jnp.float32),
-                jnp.asarray(val[1], jnp.float32))
-    if isinstance(val, (int, float)):
-        hi = np.float32(val)
-        return (hi, np.float32(float(val) - float(hi)))
-    import jax.numpy as jnp
-
-    v = jnp.asarray(val)
-    if v.dtype == jnp.float64:
-        hi = v.astype(jnp.float32)
-        lo = (v - hi.astype(jnp.float64)).astype(jnp.float32)
-        return (hi, lo)
-    return (v.astype(jnp.float32), jnp.float32(0.0))
-
-
-def _dd_epilogue(z, alpha, beta, y):
-    """``beta*y + alpha*z`` on (2, n) dd stacks with dd-scalar precision
-    (the alpha/beta contract of every reference D-precision SpMV,
-    ``hell_spmv_base.cuh:103-157``)."""
-    import jax.numpy as jnp
-
-    from spgpu_tpu.ops import dd as _dd
-
-    is_zero = isinstance(beta, (int, float)) and beta == 0
-    if (is_zero or y is None) and isinstance(alpha, (int, float)) and alpha == 1:
-        return z
-    ap = _dd_pair(alpha)
-    ah, al = _dd.dd_mul(z[0], z[1], ap[0], ap[1])
-    if is_zero or y is None:
-        return jnp.stack([ah, al])
-    bp = _dd_pair(beta)
-    bh, bl = _dd.dd_mul(y[0], y[1], bp[0], bp[1])
-    h, l = _dd.dd_add_dd(ah, al, bh, bl)
-    return jnp.stack([h, l])
-
-
-def _complex_epilogue(z, alpha, beta, y, is_dd: bool):
-    """``beta*y + alpha*z`` on complex plane stacks.
-
-    C: ``z``/``y`` are ``(2, n)`` fp32 [re, im] stacks; Z (dd-complex):
-    ``(2, 2, n)`` [re, im] x [hi, lo].  ``alpha``/``beta`` may be python
-    complex — the plane rotation ``(ar + i*ai)(zr + i*zi)`` runs on the
-    stacks (C/Z alpha/beta parity with ``hell_cspmv.cu``/``zdot.cu``)."""
-    import numpy as np
-    import jax.numpy as jnp
-
-    is_zero = isinstance(beta, (int, float, complex)) and beta == 0
-    if (is_zero or y is None) and isinstance(alpha, (int, float, complex)) \
-            and alpha == 1:
-        return z
-
-    def rot(v, s):
-        """(sr + i*si) * (v[0] + i*v[1]) on plane stacks."""
-        if isinstance(s, (int, float, complex)):
-            sr, si = float(np.real(s)), float(np.imag(s))
-        else:  # traced scalar: treated as real
-            sr, si = s, 0.0
-        if is_dd:
-            from spgpu_tpu.ops import dd as _dd
-
-            srp, sip = _dd_pair(sr), _dd_pair(si)
-
-            def smul(plane, sp):
-                return _dd.dd_mul(plane[0], plane[1], sp[0], sp[1])
-
-            rr = smul(v[0], srp)
-            ii = smul(v[1], sip)
-            ri = smul(v[1], srp)
-            ir = smul(v[0], sip)
-            re = jnp.stack(_dd.dd_add_dd(rr[0], rr[1], -ii[0], -ii[1]))
-            im = jnp.stack(_dd.dd_add_dd(ri[0], ri[1], ir[0], ir[1]))
-            return jnp.stack([re, im])
-        if isinstance(si, float) and si == 0:
-            return sr * v
-        return jnp.stack([sr * v[0] - si * v[1], sr * v[1] + si * v[0]])
-
-    out = z if isinstance(alpha, (int, float, complex)) and alpha == 1 \
-        else rot(z, alpha)
-    if is_zero or y is None:
-        return out
-    by = rot(y, beta)
-    if is_dd:
-        from spgpu_tpu.ops import dd as _dd
-
-        planes = [jnp.stack(_dd.dd_add_dd(out[p][0], out[p][1],
-                                          by[p][0], by[p][1]))
-                  for p in range(2)]
-        return jnp.stack(planes)
-    return out + by
-
-
-def _complex_plane_spmv(sub, a, x, alpha, beta, y):
-    """Four real plane products ``Re = Ar xr − Ai xi``, ``Im = Ar xi +
-    Ai xr`` on a plane-pair matrix (``WhellComplex`` /
-    :class:`~spgpu_tpu.formats.cplanes.ComplexPlanes`), then the complex
-    alpha/beta epilogue.  ``sub(layout, vec)`` is the underlying real
-    SpMV (handles dd planes itself)."""
-    import jax.numpy as jnp
-
-    xr, xi = x[0], x[1]
-    if a.is_dd:
-        from spgpu_tpu.ops import dd as _dd
-
-        arr, ari = sub(a.ar, xr), sub(a.ar, xi)
-        air, aii = sub(a.ai, xr), sub(a.ai, xi)
-        zr = jnp.stack(_dd.dd_add_dd(arr[0], arr[1], -aii[0], -aii[1]))
-        zi = jnp.stack(_dd.dd_add_dd(ari[0], ari[1], air[0], air[1]))
-        return _complex_epilogue(jnp.stack([zr, zi]), alpha, beta, y,
-                                 is_dd=True)
-    zr = sub(a.ar, xr) - sub(a.ai, xi)
-    zi = sub(a.ar, xi) + sub(a.ai, xr)
-    return _complex_epilogue(jnp.stack([zr, zi]), alpha, beta, y,
-                             is_dd=False)
-
-
-def ell_spmv(a: EllMatrix, x, alpha=1.0, beta=0.0, y=None, impl: str = "auto"):
-    """``z = beta*y + alpha*(A @ x)`` for ELL/OELL; ↔ ``spgpu?ellspmv``.
-
-    For the TPU fast path convert to WHELL (:func:`whell_spmv`)."""
-    if impl == "pallas":
-        raise ValueError("the Pallas fast path runs on the WHELL layout: "
-                         "convert.coo_to_whell + ops.whell_spmv")
-    return ell_spmv_xla(a, x, alpha, beta, y)
-
-
-def hell_spmv(a: HellMatrix, x, alpha=1.0, beta=0.0, y=None, impl: str = "auto"):
-    """``z = beta*y + alpha*(A @ x)`` for HELL; ↔ ``spgpu?hellspmv``."""
-    if impl == "pallas":
-        raise ValueError("the Pallas fast path runs on the WHELL layout: "
-                         "convert.coo_to_whell + ops.whell_spmv")
-    return hell_spmv_xla(a, x, alpha, beta, y)
-
-
-def dia_spmv(a: DiaMatrix, x, alpha=1.0, beta=0.0, y=None, impl: str = "auto"):
-    """``z = beta*y + alpha*(A @ x)`` for DIA; ↔ ``spgpu?diaspmv``."""
-    if impl == "pallas":
-        raise ValueError("the Pallas fast path runs on the SDIA layout "
-                         "(convert.dia_to_sdia + ops.sdia_spmv) or WHDIA "
-                         "(convert.coo_to_whdia + ops.whdia_spmv)")
-    return dia_spmv_xla(a, x, alpha, beta, y)
-
-
-def sdia_spmv(a, x, alpha=1.0, beta=0.0, y=None, interpret=None,
-              fused=None):
-    """SpMV on the SDIA (static-offset DIA) compute layout — the Pallas
-    TPU fast path for stencil/banded matrices with a globally small
-    diagonal set (see :class:`spgpu_tpu.formats.dia.SdiaMatrix`).  Each
-    offset is a compile-time constant; recompiles per offset tuple.
-
-    Complex (C-precision) matrices default to the FUSED one-pass kernel
-    (r5): each diagonal's x rotation is built once per plane and the
-    four real fmas share it — 8 B/cell vs the plane-pair path's 16
-    (``dia_cspmv.cu:28-33`` one-pass parity).  ``fused=False`` forces
-    the plane path; Z (dd-complex) always takes it."""
-    from spgpu_tpu.ops.pallas_kernels import (
-        sdia_spmv_cplx_pallas,
-        sdia_spmv_dd_pallas,
-        sdia_spmv_pallas,
-    )
-
-    from spgpu_tpu.formats.cplanes import ComplexPlanes
-    from spgpu_tpu.formats.dia import SdiaMatrix
-
-    if interpret is None:
-        interpret = not _on_tpu()
-    if isinstance(a, ComplexPlanes):
-        from spgpu_tpu.ops.pallas_kernels import (
-            _X_VMEM_LIMIT_BYTES, sdia_spmv_z_pallas)
-
-        plain = (isinstance(a.ar, SdiaMatrix)
-                 and isinstance(a.ai, SdiaMatrix))
-        nplanes = 4 if a.is_dd else 2
-        can_fuse = (plain
-                    # all padded x planes stage in VMEM; the fp32
-                    # kernel's explicit guard covers one plane, so the
-                    # fused paths need nplanes x within budget
-                    # (review r5)
-                    and nplanes * -(-a.ar.n_cols // 128) * 128 * 4
-                    <= _X_VMEM_LIMIT_BYTES)
-        if fused and not can_fuse:
-            raise NotImplementedError(
-                "fused complex SDIA covers SdiaMatrix planes within the "
-                "staged-x VMEM budget; oversize-x systems run the "
-                "plane-product path (omit fused or pass fused=False)")
-        if can_fuse and fused is not False:
-            fn = sdia_spmv_z_pallas if a.is_dd else sdia_spmv_cplx_pallas
-            return fn(a, x, alpha, beta, y, interpret=interpret)
-        return _complex_plane_spmv(
-            lambda m, v: sdia_spmv(m, v, interpret=interpret),
-            a, x, alpha, beta, y)
-    if getattr(a, "is_dd", False):
-        import jax.numpy as jnp
-
-        if a.n_diags == 0:
-            acc = jnp.zeros((2, a.n_rows), jnp.float32)
-        else:
-            acc = sdia_spmv_dd_pallas(a, x, interpret=interpret)
-        return _dd_epilogue(acc, alpha, beta, y)
-    return sdia_spmv_pallas(a, x, alpha, beta, y, interpret=interpret)
-
-
-def sdia_spmm(a, x, alpha=1.0, beta=0.0, y=None, interpret=None,
-              fused=None):
-    """Multi-RHS SpMM on SDIA (``x``: ``(n_rhs, n_cols)``).
-
-    Default: the loop-of-SpMV under one jit — measured FASTER on chip
-    than the fused slab-sharing kernel (1M Laplacian 8-RHS: loop 278.3
-    GFLOPS agg vs fused 216.7; banded-11 340.2 vs 324.6 — the kernel is
-    op-bound per product and XLA pipelines the loop's kernels, so
-    sharing the value stream buys nothing; DESIGN §3b).  Note the loop
-    is ONE device program whose aggregate matches N×single-rate — the
-    reference's host m-loop bar (``sdot.cu:167-175``) with single-rate
-    300 GFLOPS.  ``fused=True`` opts into the fused kernel (fp32/bf16
-    only; dd/complex raise)."""
-    import jax.numpy as jnp
-
-    from spgpu_tpu.formats.cplanes import ComplexPlanes
-
-    if interpret is None:
-        interpret = not _on_tpu()
-    special = getattr(a, "is_dd", False) or isinstance(a, ComplexPlanes)
-    if fused and special:
-        raise NotImplementedError(
-            "fused SpMM covers fp32/bf16 SDIA only; dd/complex matrices "
-            "run the loop-of-SpMV path (omit fused or pass fused=False)")
-    if fused is None:
-        fused = False
-    if fused:
-        from spgpu_tpu.ops.pallas_kernels import sdia_spmm_pallas
-
-        zs = sdia_spmm_pallas(a, x, interpret=interpret)
-    else:
-        zs = jnp.stack([
-            sdia_spmv(a, x[r], interpret=interpret)
-            for r in range(int(x.shape[0]))
-        ])
-    is_zero = isinstance(beta, (int, float)) and beta == 0
-    if is_zero or y is None:
-        return zs if isinstance(alpha, (int, float)) and alpha == 1 else alpha * zs
-    return alpha * zs + beta * y
-
-
-def hdia_spmv(a: HdiaMatrix, x, alpha=1.0, beta=0.0, y=None, impl: str = "auto"):
-    """``z = beta*y + alpha*(A @ x)`` for HDIA; ↔ ``spgpu?hdiaspmv``."""
-    if impl == "pallas":
-        raise ValueError("the Pallas fast path runs on the WHDIA layout: "
-                         "convert.coo_to_whdia + ops.whdia_spmv")
-    return hdia_spmv_xla(a, x, alpha, beta, y)
-
-
 def bcoo_spmv(a: BcooMatrix, x, alpha=1.0, beta=0.0, y=None):
-    """Block-COO SpMV (TPU extension: the reference ships BCOO conversion
-    but no kernel — SURVEY §2.2).  Dense blocks ride the MXU via one
-    batched matmul + scatter-add over block rows."""
+    """Block-COO SpMV (an extension: the reference ships BCOO conversion
+    but no kernel — SURVEY §2.2).  One batched dense block product plus a
+    scatter-add over block rows.  ``precision=HIGHEST`` keeps float32
+    blocks out of TF32 on GPUs with tensor cores."""
     import jax.numpy as jnp
 
     bc, br = a.block_cols, a.block_rows
@@ -318,10 +49,9 @@ def bcoo_spmv(a: BcooMatrix, x, alpha=1.0, beta=0.0, y=None):
     xp = jnp.pad(x, [(0, 0)] * (x.ndim - 1) + [(0, pad_c)]) if pad_c else x
     xb = xp.reshape(xp.shape[:-1] + (nbc, bc))
     xg = xb[..., a.block_col_idx, :]  # (..., n_blocks, bc)
-    prod = jnp.einsum("brc,...bc->...br", a.blocks, xg)  # (..., n_blocks, br)
-    from spgpu_tpu.ops.spmv_xla import _unfuse_on_tpu
-
-    prod = jnp.moveaxis(_unfuse_on_tpu(prod), -2, 0)
+    prod = jnp.einsum("brc,...bc->...br", a.blocks, xg,
+                      precision=jax.lax.Precision.HIGHEST)
+    prod = jnp.moveaxis(prod, -2, 0)  # (n_blocks, ..., br)
     zb = jax.ops.segment_sum(prod, a.block_row_idx, num_segments=nbr)
     acc = jnp.moveaxis(zb, 0, -2).reshape(x.shape[:-1] + (nbr * br,))[..., : a.n_rows]
     if isinstance(beta, (int, float)) and beta == 0 or y is None:
@@ -329,319 +59,21 @@ def bcoo_spmv(a: BcooMatrix, x, alpha=1.0, beta=0.0, y=None):
     return alpha * acc + beta * y
 
 
-def whell_spmv(a, x, alpha=1.0, beta=0.0, y=None, interpret=None,
-               fused=None):
-    """SpMV on the WHELL compute layout (the Pallas TPU fast path for
-    HELL-class matrices; see :mod:`spgpu_tpu.formats.whell`).  Runs the
-    compiled kernel on TPU and interpret mode elsewhere.
-
-    Double-float matrices (``coo_to_whell(packed=True)`` on float64
-    values) take/return ``(2, n)`` fp32 hi/lo stacks (``ops.dd``).
-
-    Complex (C-precision) packed matrices default to the FUSED
-    one-pass kernel (r5): one slab decode + shared xr/xi gathers + 4
-    fmas per tile, 10 B/cell traffic vs the plane-pair path's 20
-    (``hell_cspmv.cu:29`` one-pass ``cuCfmaf`` parity).
-    ``fused=False`` forces the 4-product plane path; Z (dd-complex)
-    and panelled/segmented layouts always take it."""
-    from spgpu_tpu.ops.pallas_kernels import (
-        whell_spmv_cplx_pallas,
-        whell_spmv_dd_pallas,
-        whell_spmv_pallas,
-    )
-
-    if interpret is None:
-        interpret = not _on_tpu()
-    from spgpu_tpu.formats.whell import (
-        PcellWhell, WhellComplex, WhellMatrix)
-
-    if isinstance(a, PcellWhell):
-        from spgpu_tpu.ops.pallas_kernels import pcell_spmv_pallas
-
-        return pcell_spmv_pallas(a, x, alpha, beta, y, interpret=interpret)
-    if isinstance(a, WhellComplex):
-        from spgpu_tpu.ops.pallas_kernels import _X_VMEM_LIMIT_BYTES
-
-        can_fuse = (not a.is_dd and isinstance(a.ar, WhellMatrix)
-                    and isinstance(a.ai, WhellMatrix)
-                    # the fused kernel stages BOTH x planes in VMEM;
-                    # stay on the plane path when 2x exceeds the budget
-                    # the single-plane kernels are guarded to (review r5)
-                    and 2 * a.ar.x_pages * 128 * 4 <= _X_VMEM_LIMIT_BYTES)
-        if fused and not can_fuse:
-            raise NotImplementedError(
-                "fused complex WHELL covers C-precision plain packed "
-                "planes within the 2-plane VMEM budget; Z (dd), "
-                "panelled/segmented, and oversize-x layouts run the "
-                "plane-product path (omit fused or pass fused=False)")
-        if can_fuse and fused is not False:
-            return whell_spmv_cplx_pallas(a, x, alpha, beta, y,
-                                          interpret=interpret)
-        return _complex_plane_spmv(
-            lambda m, v: whell_spmv(m, v, interpret=interpret),
-            a, x, alpha, beta, y)
-    if getattr(a, "is_dd", False):
-        z = whell_spmv_dd_pallas(a, x, interpret=interpret)
-        return _dd_epilogue(z, alpha, beta, y)
-    return whell_spmv_pallas(a, x, alpha, beta, y, interpret=interpret)
+_SPMV = {
+    EllMatrix: ell_spmv,
+    HellMatrix: hell_spmv,
+    DiaMatrix: dia_spmv,
+    SdiaMatrix: sdia_spmv,
+    HdiaMatrix: hdia_spmv,
+    BcooMatrix: bcoo_spmv,
+}
 
 
-def whdia_spmv(a, x, alpha=1.0, beta=0.0, y=None, interpret=None,
-               fused=None):
-    """SpMV on the WHDIA compute layout (the Pallas TPU fast path for
-    HDIA-class matrices; see :mod:`spgpu_tpu.formats.whdia`).  Double-
-    float matrices (float64 values) take/return ``(2, n)`` hi/lo
-    stacks.
-
-    Complex (C-precision) WHDIA matrices default to the FUSED one-pass
-    kernel (r5): one decode + shared xr/xi gathers + 4 fmas per tile,
-    8 B/cell traffic vs the plane-pair path's 16 (``hell_cspmv.cu:29``
-    one-pass ``cuCfma`` parity).  ``fused=False`` forces the 4-product
-    plane path; Z (dd-complex) and blocked layouts always take it."""
-    from spgpu_tpu.ops.pallas_kernels import (
-        whdia_spmv_cplx_pallas,
-        whdia_spmv_dd_pallas,
-        whdia_spmv_pallas,
-    )
-
-    from spgpu_tpu.formats.cplanes import ComplexPlanes
-    from spgpu_tpu.formats.whdia import WhdiaMatrix
-
-    if interpret is None:
-        interpret = not _on_tpu()
-    if isinstance(a, ComplexPlanes):
-        from spgpu_tpu.ops.pallas_kernels import (
-            _X_VMEM_LIMIT_BYTES, whdia_spmv_z_pallas)
-
-        plain = (isinstance(a.ar, WhdiaMatrix)
-                 and isinstance(a.ai, WhdiaMatrix))
-        if a.is_dd:
-            # Z (complex128): fused one-pass dd-complex kernel — four
-            # dd slabs + shared r0 decode + 4 error-free products per
-            # tile (r5; ``hdia_zspmv.cu`` parity).  4 x planes stage.
-            can_fuse = (plain and a.ar.slot_r0 is not None
-                        and 4 * a.ar.x_pages * 128 * 4
-                        <= _X_VMEM_LIMIT_BYTES)
-        else:
-            can_fuse = (plain
-                        # both x planes stage in VMEM (review r5)
-                        and 2 * a.ar.x_pages * 128 * 4
-                        <= _X_VMEM_LIMIT_BYTES)
-        if fused and not can_fuse:
-            raise NotImplementedError(
-                "fused complex WHDIA covers plain WhdiaMatrix planes "
-                "within the staged-x VMEM budget; blocked/oversize "
-                "layouts run the plane-product path (omit fused or pass "
-                "fused=False)")
-        if can_fuse and fused is not False:
-            fn = whdia_spmv_z_pallas if a.is_dd else whdia_spmv_cplx_pallas
-            return fn(a, x, alpha, beta, y, interpret=interpret)
-        return _complex_plane_spmv(
-            lambda m, v: whdia_spmv(m, v, interpret=interpret),
-            a, x, alpha, beta, y)
-    if getattr(a, "is_dd", False):
-        z = whdia_spmv_dd_pallas(a, x, interpret=interpret)
-        return _dd_epilogue(z, alpha, beta, y)
-    return whdia_spmv_pallas(a, x, alpha, beta, y, interpret=interpret)
-
-
-def whell_spmm(a, x, alpha=1.0, beta=0.0, y=None, interpret=None,
-               fused=None):
-    """Multi-RHS SpMM on WHELL (``x``: ``(n_rhs, n_cols)``).
-
-    Default strategy for packed fp32/bf16 layouts: the FUSED kernel —
-    the slab (values + indices) is decoded once per tile and amortised
-    over statically-unrolled RHS products, split into VMEM/compile-
-    budget passes (r3 chip, 262k FEM, 8 RHS: 111.6 GFLOPS aggregate on
-    the default geometry vs 105.2 loop-of-SpMV vs 97 single-SpMV rate;
-    116.9 with SpMM geometry gh=128/ct=32).  The r2 ``lax.fori`` fused
-    variant measured 8.9 GFLOPS — ~7 ns of loop overhead per (tile,
-    RHS); the static unroll removed it.
-
-    ``fused=False`` forces the loop-of-SpMV (one Pallas SpMV per RHS
-    under one jit); dd/complex matrices always take it, with ``x``:
-    ``(n_rhs, 2, n_lane)`` hi/lo or [re, im] stacks (each RHS runs the
-    dispatching :func:`whell_spmv`).  Either way this is one device
-    program, not the reference's host-side loop of kernel launches
-    (``sdot.cu:167-175`` pattern, SURVEY §2.5)."""
-    import jax.numpy as jnp
-
-    from spgpu_tpu.formats.whell import WhellComplex
-    from spgpu_tpu.ops.pallas_kernels import (
-        whell_spmm_packed_pallas,
-        whell_spmm_pallas,
-    )
-
-    if interpret is None:
-        interpret = not _on_tpu()
-    special = getattr(a, "is_dd", False) or isinstance(a, WhellComplex)
-    if fused and special:
-        # an explicit fused=True cannot be honoured for dd/complex
-        # slabs — fail loudly instead of silently downgrading to the
-        # loop-of-SpMV path (ADVICE r3)
-        raise NotImplementedError(
-            "fused SpMM covers fp32/bf16 packed layouts only; dd/complex "
-            "matrices run the loop-of-SpMV path (omit fused or pass "
-            "fused=False)")
-    if fused is None:
-        fused = getattr(a, "packed", False) and not special
-    if fused and not special:
-        if getattr(a, "packed", False):
-            zs = whell_spmm_packed_pallas(a, x, interpret=interpret)
-            is_zero = isinstance(beta, (int, float)) and beta == 0
-            if is_zero or y is None:
-                return zs if isinstance(alpha, (int, float)) and alpha == 1 else alpha * zs
-            return alpha * zs + beta * y
-        return whell_spmm_pallas(a, x, alpha, beta, y, interpret=interpret)
-    # loop-of-SpMV through the dispatcher: covers fp32/bf16, dd, and
-    # complex matrices uniformly (per-RHS alpha/beta epilogues included)
-    zs = jnp.stack([
-        whell_spmv(a, x[r], alpha=alpha, beta=beta,
-                   y=None if y is None else y[r], interpret=interpret)
-        for r in range(int(x.shape[0]))
-    ])
-    return zs
-
-
-def whdia_spmm(a, x, alpha=1.0, beta=0.0, y=None, interpret=None,
-               fused=None):
-    """Multi-RHS SpMM on WHDIA (``x``: ``(n_rhs, n_cols)``).
-
-    Default: the loop-of-SpMV under one jit — measured at PARITY with
-    the fused slab-sharing kernel on chip (banded-11 524k 8-RHS: loop
-    133.8 GFLOPS agg, fused 134.7 — the kernel is op-bound per product,
-    ~10 ns/tile-RHS either way, so sharing the slab read saves traffic
-    the VPU can't use; DESIGN §3b).  The loop is one device program at
-    N×single-rate — the reference's host m-loop bar
-    (``sdot.cu:167-175``).  ``fused=True`` opts into the fused kernel
-    (fp32/bf16 only; dd/complex raise)."""
-    import jax.numpy as jnp
-
-    from spgpu_tpu.formats.cplanes import ComplexPlanes
-
-    if interpret is None:
-        interpret = not _on_tpu()
-    special = getattr(a, "is_dd", False) or isinstance(a, ComplexPlanes)
-    if fused and special:
-        raise NotImplementedError(
-            "fused SpMM covers fp32/bf16 WHDIA only; dd/complex matrices "
-            "run the loop-of-SpMV path (omit fused or pass fused=False)")
-    if fused is None:
-        fused = False
-    if fused:
-        from spgpu_tpu.ops.pallas_kernels import whdia_spmm_pallas
-
-        zs = whdia_spmm_pallas(a, x, interpret=interpret)
-    else:
-        # the dispatching whdia_spmv (not the raw fp32 kernel): dd and
-        # complex plane stacks route to their own kernels per RHS
-        zs = jnp.stack([
-            whdia_spmv(a, x[r], interpret=interpret)
-            for r in range(int(x.shape[0]))
-        ])
-    is_zero = isinstance(beta, (int, float)) and beta == 0
-    if is_zero or y is None:
-        return zs if isinstance(alpha, (int, float)) and alpha == 1 else alpha * zs
-    return alpha * zs + beta * y
-
-
-def hybrid_spmv(a, x, alpha=1.0, beta=0.0, y=None, interpret=None):
-    """SpMV on the HYB-class hybrid split (band: WHDIA values-only,
-    rest: packed WHELL) — both parts and the lane-space crossing under
-    one jit, summed (``cusparsePerf.cpp:668-680`` HYB parity, TPU-
-    first: the crossing is a static-slice concat, not a gather).
-
-    ``x``/``z`` are ORIGINAL-space vectors (dd: ``(2, n)`` hi/lo
-    stacks)."""
-    import jax.numpy as jnp
-
-    z = None
-    if a.band is not None:
-        z = whdia_spmv(a.band, x, interpret=interpret)
-    if a.rest is not None:
-        zr = a.extract_rest(
-            whell_spmv(a.rest, a.embed_rest(x), interpret=interpret))
-        if z is None:
-            z = zr
-        elif a.is_dd:
-            from spgpu_tpu.ops import dd as _dd
-
-            h, l = _dd.dd_add_dd(z[0], z[1], zr[0], zr[1])
-            z = jnp.stack([h, l])
-        else:
-            z = z + zr
-    if a.is_dd:
-        return _dd_epilogue(z, alpha, beta, y)
-    is_zero = isinstance(beta, (int, float)) and beta == 0
-    if (is_zero or y is None) and isinstance(alpha, (int, float)) \
-            and alpha == 1:
-        return z
-    if is_zero or y is None:
-        return alpha * z
-    return alpha * z + beta * y
-
-
-def spmv(a, x, alpha=1.0, beta=0.0, y=None, **kw):
+def spmv(a, x, alpha=1.0, beta=0.0, y=None):
     """Format-generic ``z = beta*y + alpha*(A @ x)``: dispatches on the
-    matrix type (every format dataclass routes to its op)."""
-    from spgpu_tpu.formats import (
-        BcooMatrix, DiaMatrix, EllMatrix, HdiaMatrix, HellMatrix,
-        SdiaMatrix, WhdiaMatrix, WhellMatrix,
-    )
-    from spgpu_tpu.formats.cplanes import ComplexPlanes
-    from spgpu_tpu.formats.hybrid import HybridMatrix
-    from spgpu_tpu.formats.whdia import BlockedWhdia
-    from spgpu_tpu.formats.whell import (
-        PanelledWhell, PcellWhell, SegmentedWhell, WhellComplex,
-    )
-    from spgpu_tpu.parallel.blocks import BlockedPackedWhell
-
-    def _blocks_spmv(a, x, alpha=1.0, beta=0.0, y=None, **kw):
-        # stacked lane-space state (S, Lmax) in and out, like the other
-        # packed layouts whose vectors live in lane space
-        from spgpu_tpu.parallel.blocks import blocks_spmv
-
-        z = blocks_spmv(a, x, **kw)
-        is_zero = isinstance(beta, (int, float)) and beta == 0
-        if (is_zero or y is None) and isinstance(alpha, (int, float)) \
-                and alpha == 1:
-            return z
-        if a.is_dd:
-            # (S, 2, L) hi/lo block stacks: the plain alpha*z + beta*y
-            # would collapse the error-free double-float discipline —
-            # run the dd epilogue over a (2, S, L) view (elementwise
-            # EFTs, so the extra block axis is transparent).
-            import jax.numpy as jnp
-
-            zt = _dd_epilogue(jnp.swapaxes(z, 0, 1), alpha, beta,
-                              None if y is None else jnp.swapaxes(y, 0, 1))
-            return jnp.swapaxes(zt, 0, 1)
-        if is_zero or y is None:
-            return alpha * z
-        return alpha * z + beta * y
-
-    table = {
-        EllMatrix: ell_spmv,
-        HellMatrix: hell_spmv,
-        DiaMatrix: dia_spmv,
-        SdiaMatrix: sdia_spmv,
-        HdiaMatrix: hdia_spmv,
-        BcooMatrix: bcoo_spmv,
-        WhellMatrix: whell_spmv,
-        WhellComplex: whell_spmv,
-        PanelledWhell: whell_spmv,
-        SegmentedWhell: whell_spmv,
-        PcellWhell: whell_spmv,
-        WhdiaMatrix: whdia_spmv,
-        BlockedWhdia: whdia_spmv,
-        BlockedPackedWhell: _blocks_spmv,
-        HybridMatrix: hybrid_spmv,
-    }
-    if isinstance(a, ComplexPlanes):
-        fn = sdia_spmv if isinstance(a.ar, SdiaMatrix) else whdia_spmv
-        return fn(a, x, alpha, beta, y, **kw)
+    matrix type."""
     try:
-        fn = table[type(a)]
+        fn = _SPMV[type(a)]
     except KeyError:
         raise TypeError(f"no SpMV for {type(a).__name__}") from None
-    return fn(a, x, alpha, beta, y, **kw)
+    return fn(a, x, alpha, beta, y)

@@ -1,18 +1,18 @@
 """BLAS-1 / vector operation suite.
 
-TPU re-design of the reference's vector kernels (SURVEY §2.5;
+Re-design of the reference's vector kernels (SURVEY §2.5;
 ``/root/reference/src/core/kernels/{*dot,*nrm2,asum_base,amax_base,
 scal_base,*axpby,axy_base,abs_base,gath_base,scat_base,setscal_base}``,
 public API in ``src/core/vector.h``).  Design notes:
 
 * Elementwise ops (scal/axpby/axy/axypbz/abs/setscal) are thin ``jnp``
-  expressions: XLA fuses chains of them into single VPU loops, which is
+  expressions: XLA fuses chains of them into single loops, which is
   what the reference's hand-chunked 1-thread-per-element kernels achieve
   manually.
 * Reductions (dot/nrm2/asum/amax) return **device-resident 0-d arrays**.
   The reference copies per-block partials to the host and sums there
   (``sdot.cu:154-159``), forcing a device→host round-trip per reduction —
-  on TPU these stay on-device so e.g. a CG iteration never syncs.
+  here they stay on-device so e.g. a CG iteration never syncs.
 * Multivector "m"-variants operate on ``(count, n)`` slabs in ONE fused
   kernel; the reference loops on the host issuing ``count`` kernels
   (``sdot.cu:167-175``, ``saxpby.cu:87-100``).

@@ -1,16 +1,15 @@
 """SpMV / SpMM — XLA implementations (every format, every dtype).
 
-These are the portable compute paths: pure ``jnp`` programs that XLA fuses
-into one gather→multiply→reduce loop per format.  They run on CPU (tests,
-fp64 golden checks) and TPU (fp64/complex, where Pallas doesn't apply) and
-serve as the reference semantics for the Pallas kernels in
-``spgpu_tpu.ops.pallas_kernels``.
+Pure ``jnp`` programs that XLA fuses into one gather→multiply→reduce pass
+per format; the same code runs on the CPU (tests, fp64 golden checks) and
+the GPU, in float32/float64/complex64/complex128 and bfloat16.
 
 Correspondence with the reference kernels (SURVEY §2.4):
 
 * ``ell_spmv``  ↔ ``spgpu{S,D,C,Z}ellspmv``  (``ell_spmv_base*.cuh``)
 * ``hell_spmv`` ↔ ``spgpu{S,D,C,Z}hellspmv`` (``hell_spmv_base*.cuh``)
-* ``dia_spmv``  ↔ ``spgpu{S,D,C,Z}diaspmv``  (``dia_spmv_base*.cuh``)
+* ``dia_spmv``  ↔ ``spgpu{S,D,C,Z}diaspmv``  (``dia_spmv_base*.cuh``);
+  ``sdia_spmv`` is the same product with compile-time offsets
 * ``hdia_spmv`` ↔ ``spgpu{S,D,C,Z}hdiaspmv`` (``hdia_spmv_base*.cuh``)
 
 Shared semantics: ``z = beta*y + alpha*(A @ x)`` with a ``beta == 0``
@@ -18,8 +17,8 @@ specialisation that never reads ``y`` (the reference's ``_krn_b0``
 kernels, ``ell_spmv_base_template.cuh:334-340``), and OELL's stored-row →
 original-row output permutation (``:274-282``).  The CUDA mechanics the
 reference needs — texture-cache variants, 2-way prefetch, grid chunking,
-``__shfl`` hack-offset broadcast — have no equivalent here because XLA/
-Mosaic handle caching, pipelining and tiling (SURVEY §7).
+``__shfl`` hack-offset broadcast — have no equivalent here because XLA
+handles caching, pipelining and tiling (SURVEY §7).
 
 All functions accept multi-RHS ``x`` with leading batch dims
 ``(..., n_cols) → (..., n_rows)``; this *fuses* the reference's
@@ -33,9 +32,11 @@ from typing import Optional
 import jax
 import jax.numpy as jnp
 
-from spgpu_tpu.formats import DiaMatrix, EllMatrix, HdiaMatrix, HellMatrix
+from spgpu_tpu.formats import (
+    DiaMatrix, EllMatrix, HdiaMatrix, HellMatrix, SdiaMatrix)
 
-__all__ = ["ell_spmv_xla", "hell_spmv_xla", "dia_spmv_xla", "hdia_spmv_xla"]
+__all__ = ["ell_spmv_xla", "hell_spmv_xla", "dia_spmv_xla", "sdia_spmv_xla",
+           "hdia_spmv_xla"]
 
 
 def _is_zero(v) -> bool:
@@ -43,31 +44,13 @@ def _is_zero(v) -> bool:
     return isinstance(v, (int, float)) and v == 0
 
 
-def _unfuse_on_tpu(a: jax.Array) -> jax.Array:
-    """Break XLA fusion between a gather-multiply and a following
-    scatter/segment reduction on TPU.
-
-    XLA:TPU's fusion emitter CHECK-fails (``fusion_emitter.cc``:
-    ``GetGatherType(gather) == GatherType::kSublaneGather``) when an
-    arbitrary-index gather is fused into a scatter-add consumer, which is
-    exactly the HELL/HDIA ``x[cols] * v → segment_sum`` chain.  An
-    ``optimization_barrier`` materialises the product once and keeps both
-    halves compilable; value-wise it is the identity.  (Found by driving
-    the library on a real v5e chip — see tests/test_spmv.py golden runs
-    for the semantics.)
-    """
-    if jax.default_backend() == "tpu":
-        return jax.lax.optimization_barrier(a)
-    return a
-
-
-def _combine(acc, n_rows, alpha, beta, y, perm=None, rows_padded=None):
+def _combine(acc, n_rows, alpha, beta, y, perm=None):
     """z = beta*y + alpha*acc, with OELL permutation and row unpadding."""
     if perm is not None:
         # stored row i holds original row perm[i]; scatter back.
-        # perm is a permutation of range(rows_padded) → pure shuffle.
+        # perm is a permutation of the padded rows → pure shuffle.
         out = jnp.zeros(acc.shape, acc.dtype)
-        out = out.at[..., perm].set(_unfuse_on_tpu(acc))
+        out = out.at[..., perm].set(acc)
         acc = out
     acc = acc[..., :n_rows]
     if _is_zero(beta) or y is None:
@@ -91,7 +74,7 @@ def ell_spmv_xla(
     """
     xg = x[..., a.col_indices]  # (..., width_p, rows_p)
     acc = (a.values * xg).sum(axis=-2)
-    return _combine(acc, a.n_rows, alpha, beta, y, a.row_perm, a.rows_padded)
+    return _combine(acc, a.n_rows, alpha, beta, y, a.row_perm)
 
 
 def hell_spmv_xla(
@@ -107,12 +90,12 @@ def hell_spmv_xla(
     reference's per-warp hack-offset ``__shfl`` broadcast
     (``hell_spmv_base_template.cuh:32-54``)."""
     xg = x[..., a.col_indices]  # (..., S, hack)
-    prod = _unfuse_on_tpu(a.values * xg)
+    prod = a.values * xg
     prod = jnp.moveaxis(prod, -2, 0)  # (S, ..., hack)
     zh = jax.ops.segment_sum(prod, a.slot_to_hack, num_segments=a.num_hacks)
     acc = jnp.moveaxis(zh, 0, -2)  # (..., H, hack)
     acc = acc.reshape(acc.shape[:-2] + (a.rows_padded,))
-    return _combine(acc, a.n_rows, alpha, beta, y, a.row_perm, a.rows_padded)
+    return _combine(acc, a.n_rows, alpha, beta, y, a.row_perm)
 
 
 def dia_spmv_xla(
@@ -134,6 +117,30 @@ def dia_spmv_xla(
     return _combine(acc, a.n_rows, alpha, beta, y)
 
 
+def sdia_spmv_xla(
+    a: SdiaMatrix,
+    x: jax.Array,
+    alpha=1.0,
+    beta=0.0,
+    y: Optional[jax.Array] = None,
+) -> jax.Array:
+    """SDIA SpMV: Σ_j values[j] · x[i + offsets[j]] with every offset a
+    compile-time constant — each term is a static slice of x zero-padded
+    by the offset range, so the program reads no index stream, gathers
+    nothing and needs no bound check (``dia_spmv_base_template.cuh:133-135``
+    becomes the zero margins)."""
+    n = a.n_rows
+    if not a.offsets:
+        acc = jnp.zeros(x.shape[:-1] + (n,), jnp.result_type(a.values, x))
+        return _combine(acc, n, alpha, beta, y)
+    lo = max(0, -min(a.offsets))
+    hi = max(0, n + max(a.offsets) - a.n_cols)
+    xp = jnp.pad(x, [(0, 0)] * (x.ndim - 1) + [(lo, hi)])
+    acc = sum(a.values[j] * xp[..., lo + off: lo + off + n]
+              for j, off in enumerate(a.offsets))
+    return _combine(acc, n, alpha, beta, y)
+
+
 def hdia_spmv_xla(
     a: HdiaMatrix,
     x: jax.Array,
@@ -152,7 +159,7 @@ def hdia_spmv_xla(
     cols = start + lane  # (S, hack)
     ok = (cols >= 0) & (cols < a.n_cols)
     xg = x[..., jnp.clip(cols, 0, a.n_cols - 1)]
-    prod = _unfuse_on_tpu(a.values * jnp.where(ok, xg, 0))
+    prod = a.values * jnp.where(ok, xg, 0)
     prod = jnp.moveaxis(prod, -2, 0)
     zh = jax.ops.segment_sum(prod, a.slot_to_hack, num_segments=a.num_hacks)
     acc = jnp.moveaxis(zh, 0, -2)

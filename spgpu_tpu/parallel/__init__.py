@@ -3,52 +3,27 @@
 The reference has **no** multi-GPU or multi-node support (SURVEY §2.6
 absence list) — halo exchange for distributed SpMV was delegated to the
 caller (PSBLAS + MPI) using the device-side ``gath``/``scat`` pack/unpack
-primitives.  This package is the TPU-native first-class replacement:
+primitives.  This package is the first-class replacement:
 ``jax.sharding.Mesh`` + ``shard_map``, halo plans built at conversion
-time, x exchanged over ICI collectives, reductions via ``psum``.
+time, x exchanged by collectives, reductions via ``psum``.
 """
 
-__all__ = []
+from spgpu_tpu.parallel.partition import (
+    PartitionedMatrix,
+    make_row_mesh,
+    partition_coo_rows,
+)
+from spgpu_tpu.parallel.dist_spmv import ShardedHandle, dist_spmv, make_dist_matvec
+from spgpu_tpu.parallel.dist_solve import DistSolveHandle, dist_bicgstab, dist_cg
 
-try:  # populated in M4; keep the package importable while building up
-    from spgpu_tpu.parallel.partition import (  # noqa: F401
-        PartitionedMatrix,
-        make_row_mesh,
-        partition_coo_rows,
-    )
-    from spgpu_tpu.parallel.partition_whell import (  # noqa: F401
-        PartitionedWhell,
-        partition_coo_rows_whell,
-    )
-    from spgpu_tpu.parallel.partition_packed import (  # noqa: F401
-        PackedPartition,
-        partition_coo_rows_packed,
-    )
-    from spgpu_tpu.parallel.blocks import (  # noqa: F401
-        BlockedPackedWhell,
-        blocks_spmv,
-        coo_to_whell_blocks,
-    )
-    from spgpu_tpu.parallel.dist_spmv import dist_spmv, make_dist_matvec  # noqa: F401
-    from spgpu_tpu.parallel.dist_solve import (  # noqa: F401
-        DistSolveHandle, dist_bicgstab, dist_cg)
-
-    __all__ += [
-        "PartitionedMatrix",
-        "make_row_mesh",
-        "partition_coo_rows",
-        "PartitionedWhell",
-        "partition_coo_rows_whell",
-        "PackedPartition",
-        "partition_coo_rows_packed",
-        "BlockedPackedWhell",
-        "blocks_spmv",
-        "coo_to_whell_blocks",
-        "dist_spmv",
-        "make_dist_matvec",
-        "dist_cg",
-        "dist_bicgstab",
-        "DistSolveHandle",
-    ]
-except ImportError:  # pragma: no cover
-    pass
+__all__ = [
+    "PartitionedMatrix",
+    "make_row_mesh",
+    "partition_coo_rows",
+    "ShardedHandle",
+    "dist_spmv",
+    "make_dist_matvec",
+    "dist_cg",
+    "dist_bicgstab",
+    "DistSolveHandle",
+]

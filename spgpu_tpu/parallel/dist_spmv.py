@@ -1,14 +1,11 @@
-"""Sharded SpMV: ragged halo exchange overlapped with interior compute.
+"""Sharded SpMV: halo exchange overlapped with interior compute.
 
-TPU-native replacement for the distributed SpMV the reference delegated
-to its PSBLAS/MPI callers (SURVEY §2.6): ``shard_map`` over a 1-D
-``Mesh``, a RAGGED halo exchange per SpMV for the halo entries of ``x``
-(per-(offset, width-bucket) ``lax.ppermute`` rounds carrying near-exact
-per-pair widths — measured padding waste 0.94 → 0.07 at 8 shards vs the
-legacy global-max-K ``all_to_all``), and the interior product computed
-from purely local data so XLA can overlap it with the collectives (the
-interior slab has no data dependency on the received halo — the
-scheduling analogue of the interior/boundary row split sketched in
+Replacement for the distributed SpMV the reference delegated to its
+PSBLAS/MPI callers (SURVEY §2.6): ``shard_map`` over a 1-D ``Mesh``, one
+``all_to_all`` per SpMV for the halo entries of ``x``, and the interior
+product computed from purely local data so XLA can overlap it with the
+collective (the interior slab has no data dependency on the received halo
+— the scheduling analogue of the interior/boundary row split sketched in
 SURVEY §7).
 
 The device-side pack primitive ``x_local[send_idx]`` is this layer's
@@ -20,6 +17,7 @@ exterior slab's column indices, which point straight into the received
 from __future__ import annotations
 
 from functools import partial
+
 import jax
 from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
 
@@ -42,136 +40,17 @@ def shard_partitioned(pm: PartitionedMatrix, mesh: Mesh, axis: str = "rows"):
     )
 
 
-def _halo_exchange(pm, axis: str, lpm, xl):
-    """Move this shard's halo entries of ``x`` into their phantom lanes.
-
-    Ragged plan (default, r5): one ``lax.ppermute`` per LIVE ring
-    offset, each at that offset's own width with zero-width pairs
-    omitted from the perm — the bytes on the wire track the real halo
-    (SURVEY §7 ragged-all-to-all contract; pack/unpack =
-    ``gath_base.cuh:32-85``).  Partitions built without the plan fall
-    back to the legacy global-max-K ``all_to_all``.  ``xl`` may carry
-    leading plane/dd axes (``(..., L)``)."""
-    offs = getattr(pm, "halo_offsets", ())
-    if offs:
-        xf = xl
-        for i, (_o, perm) in enumerate(offs):
-            send = xl[..., lpm.halo_send_off[i][0]]  # (..., K_o)
-            recv = jax.lax.ppermute(send, axis, perm=perm)
-            xf = xf.at[..., lpm.halo_recv_off[i][0]].set(recv)
-        return xf
-    send = xl[..., lpm.send_lane_idx[0]]  # (..., S, K)
-    halo = jax.lax.all_to_all(send, axis, send.ndim - 2, send.ndim - 2)
-    halo = halo.reshape(halo.shape[:-2] + (-1,))
-    return xl.at[..., lpm.halo_lanes[0]].set(halo)
-
-
-def local_matvec(pm, axis: str, lpm, x_local):
+def local_matvec(pm: PartitionedMatrix, axis: str, lpm, x_local):
     """Shard-local SpMV body (runs inside ``shard_map``).
 
     ``lpm`` is the shard's block of the partitioned pytree (leading shard
     axis of size 1); ``x_local`` is the shard's ``(1, chunk)`` block of
-    x (packed partitions: ``(1, L)`` lane-space block, dd ``(1, 2, L)``).
-    Returns the local block of ``A @ x``.  The local products run the
-    PACKED WHELL Pallas kernel for a :class:`PackedPartition` (the
-    production path), classic WHELL Pallas for a
-    :class:`PartitionedWhell`, or the portable XLA path for a
-    :class:`PartitionedMatrix`.
+    x.  Returns the local block of ``A @ x``.
     """
-    from spgpu_tpu.parallel.partition_packed import (
-        ComplexPackedPartition, PackedPartition)
-    from spgpu_tpu.parallel.partition_whell import PartitionedWhell
-
-    if isinstance(pm, ComplexPackedPartition):
-        import types
-
-        from spgpu_tpu.ops import _complex_plane_spmv, whell_spmv
-
-        xl = x_local[0]  # (2, L) [re, im] | (2, 2, L) Z
-        rp = pm.ar
-        xf = _halo_exchange(rp, axis, lpm.ar, xl)
-
-        def pair(ext=False):
-            if ext:
-                return types.SimpleNamespace(
-                    ar=rp.local_view_ext(lpm.ar),
-                    ai=pm.ai.local_view_ext(lpm.ai), is_dd=pm.is_dd)
-            return types.SimpleNamespace(
-                ar=rp.local_view(lpm.ar), ai=pm.ai.local_view(lpm.ai),
-                is_dd=pm.is_dd)
-
-        a = pair()
-        sub = lambda m, v: whell_spmv(m, v)
-
-        def prod(m, v, alpha=1.0, beta=0.0, y=None):
-            # C precision takes the FUSED one-pass complex kernel (r5:
-            # one decode + shared gathers + 4 fmas; 2.3x the plane-pair
-            # path on chip); Z keeps the error-free dd plane products
-            if not pm.is_dd:
-                from spgpu_tpu.ops import _on_tpu
-                from spgpu_tpu.ops.pallas_kernels import (
-                    whell_spmv_cplx_pallas)
-
-                return whell_spmv_cplx_pallas(m, v, alpha, beta, y,
-                                              interpret=not _on_tpu())
-            return _complex_plane_spmv(sub, m, v, alpha, beta, y)
-
-        nc = a.ar.n_cols
-        no_halo = bool(rp.halo_counts) and not any(
-            c for row in rp.halo_counts for c in row)
-        if not pm.overlapped or no_halo:
-            z = prod(a, (xl if no_halo else xf)[..., :nc])
-            return z[None]
-        # overlapped: the interior products read the pre-exchange x and
-        # run concurrently with the halo collectives; the exterior
-        # products add through the complex beta=1 epilogue (dd:
-        # error-free)
-        z_int = prod(a, xl[..., :nc])
-        a_ext = pair(ext=True)
-        z = prod(a_ext, xf[..., :a_ext.ar.n_cols], 1.0, 1.0, z_int)
-        return z[None]
-
-    if isinstance(pm, PackedPartition):
-        from spgpu_tpu.ops import whell_spmv
-
-        xl = x_local[0]  # (L,) fp32 | (2, L) dd, in lane space
-        xf = _halo_exchange(pm, axis, lpm, xl)
-        a = pm.local_view(lpm)
-        # static skip: a partition with NO halo anywhere (1 shard, or a
-        # block-diagonal matrix) has an empty exterior slab on every
-        # shard — the second kernel would cost ~30 us of pure overhead
-        # (measured on chip, 262k 1-device mesh: 0.137 -> 0.171 ms)
-        no_halo = bool(pm.halo_counts) and not any(
-            c for row in pm.halo_counts for c in row)
-        if not pm.overlapped or no_halo:
-            z = whell_spmv(a, (xl if no_halo else xf)[..., : a.n_cols])
-            return z[None]
-        # overlapped schedule: the interior product reads only the
-        # PRE-exchange local x, so XLA's async-collective scheduler can
-        # run it concurrently with the all-to-all; the small exterior
-        # product (halo columns only) lands as `z_int + A_ext @ xf`
-        # afterwards — both slabs share one lane space so the sum is
-        # exact (dd: the beta=1 epilogue is an error-free dd add)
-        z_int = whell_spmv(a, xl[..., : a.n_cols])
-        a_ext = pm.local_view_ext(lpm)
-        z = whell_spmv(a_ext, xf[..., : a_ext.n_cols], beta=1.0, y=z_int)
-        return z[None]
-
     xl = x_local[0]
-    # halo exchange: pack (gath), all-to-all over ICI, flat receive buffer
+    # halo exchange: pack (gath), all-to-all, flat receive buffer
     send_buf = xl[lpm.send_idx[0]]  # (P, K)
     halo = jax.lax.all_to_all(send_buf, axis, 0, 0).reshape(-1)  # (P*K,)
-    if isinstance(pm, PartitionedWhell):
-        from spgpu_tpu.ops import whell_spmv
-
-        a_int = pm.local_interior(tuple(l[0] for l in (
-            lpm.int_values, lpm.int_residue, lpm.int_page_tab,
-            lpm.int_tile_base, lpm.int_chunk_group)))
-        z = whell_spmv(a_int, xl)
-        a_ext = pm.local_exterior(tuple(l[0] for l in (
-            lpm.ext_values, lpm.ext_residue, lpm.ext_page_tab,
-            lpm.ext_tile_base, lpm.ext_chunk_group)))
-        return (z + whell_spmv(a_ext, halo))[None]
     # interior SpMV — independent of the collective; XLA overlaps them
     a_int = pm.local_interior(
         lpm.int_values[0], lpm.int_cols[0],
@@ -187,6 +66,12 @@ def local_matvec(pm, axis: str, lpm, x_local):
     return z[None]
 
 
+def _matvec_program(pm: PartitionedMatrix, mesh: Mesh, axis: str):
+    return jax.jit(jax.shard_map(
+        partial(local_matvec, pm, axis), mesh=mesh,
+        in_specs=(_leaf_spec(pm, axis), P(axis)), out_specs=P(axis)))
+
+
 def dist_spmv(
     pm: PartitionedMatrix,
     x: jax.Array,
@@ -196,39 +81,12 @@ def dist_spmv(
     """Distributed ``A @ x`` for a row-partitioned square matrix.
 
     ``x`` is a global ``(n,)`` vector (replicated or sharded); the result
-    is the global ``(n,)`` product, sharded over ``axis``.  For a
-    :class:`~spgpu_tpu.parallel.partition_packed.PackedPartition` the
-    vector crosses through ``pm.embed``/``pm.extract`` (lane space);
-    both take and return original-numbering ``(n,)`` vectors.
+    is the global ``(n,)`` product, sharded over ``axis``.  One-shot: for
+    a loop of products use :class:`ShardedHandle`, which places the
+    matrix and compiles the program once.
     """
-    import numpy as np
-
-    from spgpu_tpu.parallel.partition_packed import (
-        ComplexPackedPartition, PackedPartition)
-
-    packedish = isinstance(pm, (PackedPartition, ComplexPackedPartition))
-    if packedish:
-        xp = jax.device_put(jax.numpy.asarray(pm.embed(np.asarray(x))),
-                            NamedSharding(mesh, P(axis)))
-    else:
-        xp = pad_vector(x, pm.padded_rows).reshape(pm.n_shards, pm.chunk)
-        xp = jax.device_put(xp, NamedSharding(mesh, P(axis)))
-    pm_s = shard_partitioned(pm, mesh, axis)
-    f = jax.jit(
-        jax.shard_map(
-            partial(local_matvec, pm, axis),
-            mesh=mesh,
-            in_specs=(_leaf_spec(pm, axis), P(axis)),
-            out_specs=P(axis),
-            # pallas_call inside shard_map can't annotate vma on its
-            # out_shape structs; skip the varying-mesh-axes check
-            check_vma=False,
-        )
-    )
-    z = f(pm_s, xp)
-    if packedish:
-        return jax.numpy.asarray(pm.extract(np.asarray(z)))
-    return z.reshape(-1)[: pm.n_rows]
+    h = ShardedHandle(pm, mesh, axis)
+    return h.extract(h.matvec(h.embed(x)))
 
 
 def make_dist_matvec(pm: PartitionedMatrix, axis: str = "rows"):
@@ -239,14 +97,11 @@ def make_dist_matvec(pm: PartitionedMatrix, axis: str = "rows"):
 
 
 class ShardedHandle:
-    """Persistent sharded-matrix handle for a pod run loop.
+    """Persistent sharded-matrix handle for a run loop.
 
-    :func:`dist_spmv` re-``device_put``s the whole partitioned pytree
-    and re-traces the ``shard_map`` program on EVERY call — fine for a
-    one-shot dryrun, wrong for a production loop (VERDICT r3 weak #2).
-    This handle places the pytree on the mesh ONCE and compiles the
-    matvec ONCE; thereafter ``matvec`` maps a device-resident stacked
-    lane-space state to the product state with no host round trips.
+    Places the pytree on the mesh ONCE and compiles the matvec ONCE;
+    thereafter ``matvec`` maps a device-resident ``(n_shards, chunk)``
+    state to the product state with no host round trips.
 
     >>> h = ShardedHandle(pm, mesh)
     >>> x_st = h.embed(x_host)          # once per vector
@@ -255,35 +110,22 @@ class ShardedHandle:
     >>> z = h.extract(x_st)
     """
 
-    def __init__(self, pm, mesh: Mesh, axis: str = "rows"):
-        from spgpu_tpu.parallel.partition_packed import (
-            ComplexPackedPartition, PackedPartition)
-
-        if not isinstance(pm, (PackedPartition, ComplexPackedPartition)):
-            raise TypeError("ShardedHandle covers the packed production "
-                            "partitions (real or complex plane pairs); "
-                            "use dist_spmv for classic ones")
+    def __init__(self, pm: PartitionedMatrix, mesh: Mesh, axis: str = "rows"):
         self.pm, self.mesh, self.axis = pm, mesh, axis
         self.sharding = NamedSharding(mesh, P(axis))
         self.pm_s = shard_partitioned(pm, mesh, axis)
-        self._f = jax.jit(jax.shard_map(
-            partial(local_matvec, pm, axis), mesh=mesh,
-            in_specs=(_leaf_spec(pm, axis), P(axis)),
-            out_specs=P(axis), check_vma=False))
+        self._f = _matvec_program(pm, mesh, axis)
 
     def embed(self, x) -> jax.Array:
-        """Host global ``(n,)`` vector → device stacked lane state."""
-        import numpy as np
+        """Global ``(n,)`` vector → device ``(n_shards, chunk)`` state."""
+        pm = self.pm
+        xp = pad_vector(x, pm.padded_rows).reshape(pm.n_shards, pm.chunk)
+        return jax.device_put(xp, self.sharding)
 
-        return jax.device_put(
-            jax.numpy.asarray(self.pm.embed(np.asarray(x))), self.sharding)
-
-    def extract(self, z_st):
-        """Device stacked lane state → host global ``(n,)`` vector."""
-        import numpy as np
-
-        return self.pm.extract(np.asarray(z_st))
+    def extract(self, z_st) -> jax.Array:
+        """Device ``(n_shards, chunk)`` state → global ``(n,)`` vector."""
+        return z_st.reshape(-1)[: self.pm.n_rows]
 
     def matvec(self, x_st: jax.Array) -> jax.Array:
-        """Stacked lane-space ``A @ x`` (compiled once, reused)."""
+        """``A @ x`` on the sharded state (compiled once, reused)."""
         return self._f(self.pm_s, x_st)

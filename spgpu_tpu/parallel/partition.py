@@ -6,7 +6,7 @@ which used the device-side ``gath``/``scat`` kernels
 (``/root/reference/src/core/kernels/{gath,scat}_base.cuh``) plus the OELL
 row permutation (``ell.c:161-202``) to pack/unpack halo entries of ``x``.
 
-This module is the TPU-native, first-class replacement.  At conversion
+This module is the first-class replacement.  At conversion
 time we build a :class:`PartitionedMatrix`:
 
 * rows are split into ``n_shards`` contiguous blocks of ``chunk`` rows
@@ -25,8 +25,8 @@ time we build a :class:`PartitionedMatrix`:
   to peer ``p``; the matching receive layout places peer ``p``'s k-th
   entry at halo position ``p*K + k`` on the requesting shard.  One
   ``jax.lax.all_to_all`` of shape ``(P, K)`` per SpMV moves every halo —
-  the TPU equivalent of the MPI_Alltoallv the PSBLAS layer performed,
-  riding ICI instead of the host network.
+  the equivalent of the MPI_Alltoallv the PSBLAS layer performed, carried
+  by the device interconnect (NCCL over NVLink on GPUs).
 
 Both slabs use the HELL layout (values ``(slots, hack_size)``, prefix-sum
 ``hack_offsets``, ``slot_to_hack``) stacked across shards with per-shard
@@ -42,7 +42,7 @@ from typing import Optional
 import jax
 import numpy as np
 
-from spgpu_tpu.core import DEFAULT_HACK_SIZE, round_up, sublanes
+from spgpu_tpu.core import HELL_HACK_SIZE, require_x64, round_up
 from spgpu_tpu.formats import CooMatrix, HellMatrix
 
 
@@ -64,11 +64,9 @@ def _hell_arrays_from_entries(
 ) -> tuple:
     """Build HELL slab arrays (values, col_indices, hack_offsets,
     slot_to_hack) for one shard's entry list (local row ids)."""
-    sub = sublanes(dtype)
     counts = np.bincount(rows, minlength=n_local_rows).astype(np.int64)
     num_hacks = max(n_local_rows // hack_size, 1)
-    w = counts.reshape(num_hacks, hack_size).max(axis=1)
-    w = np.maximum(round_up(1, sub), -(-w // sub) * sub)  # ≥1 tile per hack
+    w = np.maximum(counts.reshape(num_hacks, hack_size).max(axis=1), 1)
     ho = np.zeros(num_hacks + 1, dtype=np.int64)
     np.cumsum(w, out=ho[1:])
     total = int(ho[-1])
@@ -173,7 +171,7 @@ class PartitionedMatrix:
 def partition_coo_rows(
     coo: CooMatrix,
     n_shards: int,
-    hack_size: int = DEFAULT_HACK_SIZE,
+    hack_size: int = HELL_HACK_SIZE,
 ) -> PartitionedMatrix:
     """Build a :class:`PartitionedMatrix` from a square host COO.
 
@@ -182,6 +180,7 @@ def partition_coo_rows(
     """
     if coo.n_rows != coo.n_cols:
         raise ValueError("halo-partitioned SpMV requires a square matrix")
+    require_x64(coo.dtype)
     n = coo.n_rows
     chunk = round_up(-(-n // n_shards), hack_size)
     dtype = coo.dtype
@@ -213,7 +212,6 @@ def partition_coo_rows(
             lst = (ext[owners == p] - p * chunk).astype(np.int64)
             send_list[p][s] = lst
             K = max(K, lst.size)
-    K = round_up(K, 8)  # sublane-align the halo buckets
 
     send_idx = np.zeros((n_shards, n_shards, K), dtype=np.int32)
     # halo position of global col c on requester s: owner*K + rank-in-list

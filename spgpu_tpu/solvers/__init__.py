@@ -1,6 +1,4 @@
 from spgpu_tpu.solvers.auto import solve
-from spgpu_tpu.solvers.cg import (CgResult, bicgstab, bicgstab_dd, cg, cg_dd,
-                                  jacobi_preconditioner)
+from spgpu_tpu.solvers.cg import CgResult, bicgstab, cg, jacobi_preconditioner
 
-__all__ = ["CgResult", "bicgstab", "bicgstab_dd", "cg", "cg_dd",
-           "jacobi_preconditioner", "solve"]
+__all__ = ["CgResult", "bicgstab", "cg", "jacobi_preconditioner", "solve"]

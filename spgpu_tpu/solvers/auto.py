@@ -1,10 +1,10 @@
 """High-level solve entry point: format selection + layout + Krylov.
 
 The reference left this whole pipeline to its PSBLAS callers (load COO,
-pick a format, convert, iterate).  ``solve`` packages it: pick the
-cheapest layout by slab-traffic estimate (:mod:`spgpu_tpu.convert.select`),
-build the TPU compute layout (with the windowed-OELL symmetric relabel
-for solver use), and run CG or BiCGSTAB device-resident.
+pick a format, convert, iterate).  ``solve`` packages it: pick the layout
+with the least per-product traffic (:func:`~spgpu_tpu.convert.select.
+suggest_format`), build it in the system's own dtype, and run CG or
+BiCGSTAB device-resident.
 """
 
 from __future__ import annotations
@@ -17,9 +17,17 @@ from spgpu_tpu.formats.coo import CooMatrix
 
 __all__ = ["solve"]
 
-#: per-kernel x budget driving the whell -> row-blocks switch in solve()
-#: (parallel/blocks.py; lane space is ~1.4x rows)
-_BLOCKS_X_BYTES = 7 * 2 ** 20
+
+def _converters():
+    from spgpu_tpu import convert
+
+    return {
+        "sdia": convert.coo_to_sdia,
+        "dia": convert.coo_to_dia,
+        "hdia": convert.coo_to_hdia,
+        "hell": convert.coo_to_hell,
+        "ell": convert.coo_to_ell,
+    }
 
 
 def solve(
@@ -34,264 +42,36 @@ def solve(
 ):
     """Solve ``A x = b`` for a square host COO.
 
-    ``symmetric=True`` runs CG (SPD systems), else BiCGSTAB.  ``fmt``
-    overrides the automatic layout choice
-    ("whell" | "sdia" | "whdia" | "hybrid" | "hell" | "blocks" |
-    "pcell" — "blocks" forces the row-blocked packed layout regardless
-    of size, "hybrid" the HYB-class banded+irregular split, "pcell" the
-    per-cell-routing layout).
-    Returns a :class:`~spgpu_tpu.solvers.cg.CgResult` whose ``x`` is in
-    the ORIGINAL row numbering (relabelling is internal).
+    ``symmetric=True`` runs CG (SPD or hermitian positive definite
+    systems), else BiCGSTAB; both work in the dtype of the matrix and
+    ``b`` (float32, float64, complex64, complex128).  ``fmt`` overrides the automatic
+    layout choice (``"sdia" | "dia" | "hdia" | "hell" | "ell"``).
+    Returns a :class:`~spgpu_tpu.solvers.cg.CgResult`.
     """
     import jax.numpy as jnp
 
-    from spgpu_tpu.convert import (
-        coo_to_hell,
-        coo_to_sdia,
-        coo_to_whdia,
-        coo_to_whell,
-        suggest_format,
-    )
-    from spgpu_tpu.ops import hell_spmv, sdia_spmv, whdia_spmv, whell_spmv
+    from spgpu_tpu.convert import suggest_format
+    from spgpu_tpu.core import require_x64
+    from spgpu_tpu.ops import spmv
     from spgpu_tpu.solvers.cg import bicgstab, cg, jacobi_preconditioner
 
     if coo.n_rows != coo.n_cols:
         raise ValueError("solve requires a square system")
-    # Coalesce duplicates ONCE, up front: WHELL keeps duplicates additive
-    # while WHDIA plain-stores (last-write-wins, like coo2dia) — without
-    # this, a duplicated COO would solve a different matrix depending on
-    # which layout the auto-selector picks.
+    require_x64(coo.dtype)
+    # Coalesce duplicates once, up front: the ELL family keeps duplicates
+    # additive while the DIA family plain-stores (last-write-wins, like
+    # coo2dia) — without this, a duplicated COO would solve a different
+    # matrix depending on which layout the selector picks.
     coo = coo.sum_duplicates()
-    if np.issubdtype(coo.values.dtype, np.complexfloating):
-        if fmt in (None, "whell", "whdia", "sdia"):
-            # plane-stacked complex Krylov on the fast paths
-            # (C = fp32 planes, Z = dd planes): hermitian PD runs CG,
-            # general systems BiCGSTAB — full C/Z solver coverage
-            # (reference C/Z instantiation is unconditional:
-            # zdot.cu/zaxpby.cu, dia_cspmv.cu, hdia_zspmv.cu)
-            return _solve_complex(coo, b, symmetric, tol, maxiter, x0, fmt)
-        # explicit fmt override: complex Krylov on the XLA path
-        fmt = "hell"
     if fmt is None:
         fmt = suggest_format(coo)
-        if fmt in ("dia", "ell"):  # compute layouts for the chosen class
-            fmt = {"dia": "sdia", "ell": "whell"}[fmt]
-        if fmt == "sdia":
-            # SDIA keeps the whole x in VMEM; past the budget fall back
-            # to the windowed WHDIA layout (diaPerf's DIA->HDIA fallback)
-            itemsize = 8 if coo.values.dtype == np.float64 else 4
-            if coo.n_cols * itemsize > 11 * 2**20:
-                fmt = "whdia"
-
-    work = coo
-    lane_embed = None  # original-index -> lane-space map (packed WHELL)
-    blocks = None  # row-blocked layout for x beyond the VMEM budget
-    is_dd = False
-    if fmt in ("whell", "blocks"):
-        # x beyond the per-kernel VMEM budget: row blocks (each a
-        # flagship-grade packed matrix; halos move as interval slices —
-        # parallel/blocks.py supersedes column panels for large solves).
-        # fmt="blocks" forces this path regardless of size.
-        itemsize = 8 if coo.values.dtype == np.float64 else 4
-        if fmt == "blocks" or coo.n_cols * itemsize * 1.4 > _BLOCKS_X_BYTES:
-            from spgpu_tpu.parallel.blocks import (
-                blocks_cg, blocks_spmv, coo_to_whell_blocks)
-
-            a = coo_to_whell_blocks(work)
-            blocks = a
-            S, L = a.n_blocks, a.n_lane
-            is_dd = a.is_dd
-            if symmetric and a.halo_src is None:
-                # SPD on an interval plan: the zero-copy tuple CG
-                # (fp32 or double-float — blocks_cg dispatches; the dd
-                # tuple path splices halos in-kernel and keeps
-                # error-free cross-block reductions)
-                m_inv = jacobi_preconditioner(work) if jacobi else None
-                return blocks_cg(a, np.asarray(b), x0=x0, tol=tol,
-                                 maxiter=maxiter, m_inv=m_inv)
-            if is_dd:
-                mv = lambda v: jnp.swapaxes(
-                    blocks_spmv(a, jnp.swapaxes(
-                        v.reshape(2, S, L), 0, 1)), 0, 1).reshape(2, -1)
-            else:
-                mv = lambda v: blocks_spmv(a, v.reshape(S, L)).reshape(-1)
-        else:
-            # packed-lane layout: rows/columns live in lane space
-            # (phantom coordinates stay zero through the whole Krylov
-            # iteration, so the solve runs in lane space end-to-end and
-            # only b/x cross).  float64 systems run the double-float
-            # kernel + cg_dd (D-precision parity with the reference's
-            # hell_dspmv/native-fp64 CG callers).
-            a = coo_to_whell(work, packed=True)
-            mv = lambda v: whell_spmv(a, v)
-            lane_embed = np.asarray(a.lane_of_row)
-            n_lane = a.n_rows
-            is_dd = a.is_dd
-    elif fmt == "sdia":
-        a = coo_to_sdia(work)
-        mv = lambda v: sdia_spmv(a, v)
-        is_dd = a.is_dd
-    elif fmt == "whdia":
-        a = coo_to_whdia(work)
-        mv = lambda v: whdia_spmv(a, v)
-        is_dd = a.is_dd
-    elif fmt == "hybrid":
-        # HYB-class banded+irregular split (cusparsePerf.cpp:668-680
-        # parity): band → WHDIA values-only, rest → packed WHELL; the
-        # solve iterates ORIGINAL-space vectors (the lane-space crossing
-        # is internal to hybrid_spmv)
-        from spgpu_tpu.convert import coo_to_hybrid
-        from spgpu_tpu.ops import hybrid_spmv
-
-        a = coo_to_hybrid(work)
-        mv = lambda v: hybrid_spmv(a, v)
-        is_dd = a.is_dd
-    elif fmt == "hell":
-        a = coo_to_hell(work)
-        mv = lambda v: hell_spmv(a, v)
-    elif fmt == "pcell":
-        # per-cell row routing (kept as the measured-refuted kernel
-        # family, DESIGN §2h); x/z are original-space vectors
-        from spgpu_tpu.convert.pcell import coo_to_whell_percell
-
-        a = coo_to_whell_percell(work)
-        mv = lambda v: whell_spmv(a, v)
-    else:
-        raise ValueError(f"unknown fmt {fmt!r}")
-
-    b = np.asarray(b)
-    m_inv = jacobi_preconditioner(work) if jacobi else None
-    if blocks is not None:
-        S, L = blocks.n_blocks, blocks.n_lane
-        m_flat = None
-        if m_inv is not None:
-            m_st = np.ones((S, L), np.float32)
-            for s, mat in enumerate(blocks.mats):
-                lo = s * blocks.chunk
-                nloc = max(0, min((s + 1) * blocks.chunk,
-                                  blocks.n_rows) - lo)
-                lor = np.asarray(mat.lane_of_row)[:nloc]
-                m_st[s, lor] = np.asarray(m_inv,
-                                          np.float64)[lo:lo + nloc]
-            m_flat = jnp.asarray(m_st.reshape(-1))
-        if is_dd:
-            from spgpu_tpu.solvers.cg import bicgstab_dd, cg_dd
-
-            bp = jnp.swapaxes(jnp.asarray(blocks.embed(b)),
-                              0, 1).reshape(2, -1)
-            x0p = None
-            if x0 is not None:
-                x0p = jnp.swapaxes(jnp.asarray(blocks.embed(
-                    np.asarray(x0))), 0, 1).reshape(2, -1)
-            dd_solver = cg_dd if symmetric else bicgstab_dd
-            res = dd_solver(mv, bp, x0=x0p, tol=tol, maxiter=maxiter,
-                            m_inv=m_flat)
-            xs = np.swapaxes(np.asarray(res.x).reshape(2, S, L), 0, 1)
-            return res._replace(x=blocks.extract(xs))
-        bp = jnp.asarray(blocks.embed(b)).reshape(-1)
-        x0p = (None if x0 is None
-               else jnp.asarray(blocks.embed(np.asarray(x0))).reshape(-1))
-        solver = cg if symmetric else bicgstab
-        res = solver(mv, bp, x0=x0p, tol=tol, maxiter=maxiter,
-                     m_inv=m_flat)
-        xs = np.asarray(res.x).reshape(S, L)
-        return res._replace(x=jnp.asarray(blocks.extract(xs)))
-    if lane_embed is not None:
-        bl = np.zeros(n_lane, b.dtype)
-        bl[lane_embed] = b
-        b_work = bl
-        if m_inv is not None:
-            ml = np.ones(n_lane, np.asarray(m_inv).dtype)
-            ml[lane_embed] = np.asarray(m_inv)
-            m_inv = jnp.asarray(ml)
-        x0_work = None
-        if x0 is not None:
-            xl = np.zeros(n_lane, b.dtype)
-            xl[lane_embed] = np.asarray(x0)
-            x0_work = jnp.asarray(xl)
-    else:
-        b_work = b
-        x0_work = None if x0 is None else jnp.asarray(x0)
-
-    if is_dd:
-        from spgpu_tpu.ops import dd as _dd
-        from spgpu_tpu.solvers.cg import bicgstab_dd, cg_dd
-
-        b_pair = jnp.asarray(_dd.split(np.asarray(b_work, np.float64)))
-        x0_pair = None
-        if x0_work is not None:
-            x0_pair = jnp.asarray(_dd.split(np.asarray(x0_work, np.float64)))
-        if m_inv is not None:
-            m_inv = jnp.asarray(np.asarray(m_inv, np.float64).astype(np.float32))
-        dd_solver = cg_dd if symmetric else bicgstab_dd
-        res = dd_solver(mv, b_pair, x0=x0_pair, tol=tol, maxiter=maxiter,
-                        m_inv=m_inv)
-        x64 = _dd.join(np.asarray(res.x))
-        # host float64 (a jnp array would downcast without x64 / on TPU)
-        if lane_embed is not None:
-            x64 = x64[lane_embed]
-        return res._replace(x=x64)
-
+    conv = _converters()
+    if fmt not in conv:
+        raise ValueError(f"unknown fmt {fmt!r}; expected one of {sorted(conv)}")
+    a = conv[fmt](coo)
+    m_inv = jacobi_preconditioner(coo) if jacobi else None
     solver = cg if symmetric else bicgstab
-    res = solver(mv, jnp.asarray(b_work), x0=x0_work, tol=tol,
-                 maxiter=maxiter, m_inv=m_inv)
-    if lane_embed is not None:
-        res = res._replace(x=jnp.asarray(np.asarray(res.x)[lane_embed]))
-    return res
-
-
-def _solve_complex(coo, b, symmetric, tol, maxiter, x0, fmt=None):
-    """Complex solve on the plane fast paths: hermitian PD → CG, general
-    → BiCGSTAB (C = fp32 planes, Z = dd planes).  Format selection as
-    in the real pipeline: banded structure routes to the DIA-class
-    plane layouts (WHDIA/SDIA), irregular to packed WHELL."""
-    import jax.numpy as jnp
-
-    from spgpu_tpu.convert import (
-        coo_to_sdia,
-        coo_to_whdia,
-        coo_to_whell,
-        suggest_format,
-    )
-    from spgpu_tpu.ops import sdia_spmv, whdia_spmv, whell_spmv
-    from spgpu_tpu.solvers.cg import (
-        bicgstab_planes,
-        bicgstab_planes_dd,
-        cg_herm_planes,
-        cg_herm_planes_dd,
-    )
-
-    if fmt is None:
-        fmt = suggest_format(coo)
-        # complex matrices run plane pairs; the hybrid split is
-        # real-only, so band-heavy complex systems take plane-pair WHDIA
-        fmt = {"dia": "sdia", "ell": "whell",
-               "hybrid": "whdia"}.get(fmt, fmt)
-        if fmt == "sdia":
-            # the fused one-pass kernel stages BOTH planes in VMEM:
-            # complex64 8 B/col, complex128 (dd plane pairs) 16 — the
-            # old 4/8 thresholds routed ~2x-too-large systems here
-            # (review r5)
-            plane_b = 16 if coo.values.dtype == np.complex128 else 8
-            if coo.n_cols * plane_b > 11 * 2 ** 20:
-                fmt = "whdia"
-    if fmt == "whell":
-        a = coo_to_whell(coo, packed=True)
-        mv = lambda v: whell_spmv(a, v)
-    elif fmt == "whdia":
-        a = coo_to_whdia(coo)
-        mv = lambda v: whdia_spmv(a, v)
-    elif fmt == "sdia":
-        a = coo_to_sdia(coo)
-        mv = lambda v: sdia_spmv(a, v)
-    else:
-        raise ValueError(f"unknown complex fmt {fmt!r}")
-    b = np.asarray(b)
-    bs = jnp.asarray(a.embed_complex(b))
-    x0s = None if x0 is None else jnp.asarray(a.embed_complex(np.asarray(x0)))
-    if symmetric:
-        solver = cg_herm_planes_dd if a.is_dd else cg_herm_planes
-    else:
-        solver = bicgstab_planes_dd if a.is_dd else bicgstab_planes
-    res = solver(mv, bs, x0=x0s, tol=tol, maxiter=maxiter)
-    return res._replace(x=a.extract_complex(np.asarray(res.x)))
+    dt = np.result_type(coo.dtype, np.asarray(b).dtype)
+    return solver(lambda v: spmv(a, v), jnp.asarray(b, dt),
+                  x0=None if x0 is None else jnp.asarray(x0, dt),
+                  tol=tol, maxiter=maxiter, m_inv=m_inv)

@@ -22,9 +22,7 @@ import jax.numpy as jnp
 
 from spgpu_tpu.ops import blas1
 
-__all__ = ["CgResult", "cg", "cg_dd", "cg_herm_planes", "cg_herm_planes_dd",
-           "bicgstab", "bicgstab_dd", "bicgstab_planes",
-           "bicgstab_planes_dd", "jacobi_preconditioner"]
+__all__ = ["CgResult", "cg", "bicgstab", "jacobi_preconditioner"]
 
 
 class CgResult(NamedTuple):
@@ -54,7 +52,8 @@ def cg(
     m_inv: Optional[jax.Array] = None,
     axis_name: Optional[str] = None,
 ) -> CgResult:
-    """Preconditioned conjugate gradient for SPD ``A``.
+    """Preconditioned conjugate gradient for SPD (or hermitian positive
+    definite) ``A``, in the dtype of ``b``.
 
     ``matvec`` maps x → A@x (any of the format SpMVs, or a shard_map'd
     distributed SpMV).  ``m_inv`` is an optional diagonal (Jacobi)
@@ -99,567 +98,6 @@ def cg(
     return CgResult(x, k, rnorm, rnorm <= tol * bnorm)
 
 
-def cg_dd(
-    matvec: Callable[[jax.Array], jax.Array],
-    b: jax.Array,
-    x0: Optional[jax.Array] = None,
-    tol: float = 1e-12,
-    maxiter: int = 1000,
-    m_inv: Optional[jax.Array] = None,
-    axis_name: Optional[str] = None,
-) -> CgResult:
-    """Conjugate gradient in double-float (fp64-on-TPU) arithmetic.
-
-    All vectors are ``(2, n)`` fp32 hi/lo stacks (``ops.dd.split``);
-    ``matvec`` maps a stack to a stack (``ops.whell_spmv`` on a packed
-    dd matrix).  Scalars (α, β, ρ) are dd pairs; dot products use
-    error-free tree summation, so the iteration matches native-fp64 CG
-    (the reference's D-precision solve workload) to ~2^-48.  ``m_inv``
-    is an fp32 Jacobi diagonal (preconditioning needs no extra
-    precision).
-
-    ``axis_name``: inside ``shard_map`` over a row partition, per-shard
-    dd partials are combined with an ``all_gather`` + error-free tree
-    sum — a plain ``psum`` of hi words would round each hop to fp32 and
-    cap the distributed solve at single precision.
-    """
-    from spgpu_tpu.ops import dd
-
-    def dotd(u, v):
-        h, l = dd.dd_dot(u, v)
-        if axis_name is None:
-            return h, l
-        hs = jax.lax.all_gather(h, axis_name)
-        ls = jax.lax.all_gather(l, axis_name)
-        h, l = hs[0], ls[0]
-        for i in range(1, hs.shape[0]):
-            h, l = dd.dd_add_dd(h, l, hs[i], ls[i])
-        return h, l
-
-    def axpy_dd(alpha_pair, p, x):
-        # x + alpha*p, all dd
-        ph, pe = dd.dd_mul(p[0], p[1], alpha_pair[0], alpha_pair[1])
-        h, l = dd.dd_add_dd(x[0], x[1], ph, pe)
-        return jnp.stack([h, l])
-
-    def sub_dd(a, b2):
-        h, l = dd.dd_add_dd(a[0], a[1], -b2[0], -b2[1])
-        return jnp.stack([h, l])
-
-    def prec(v):
-        if m_inv is None:
-            return v
-        h, l = dd.dd_mul(v[0], v[1], m_inv, jnp.zeros_like(m_inv))
-        return jnp.stack([h, l])
-
-    if x0 is None:
-        x0 = jnp.zeros_like(b)
-    r0 = sub_dd(b, matvec(x0))
-    z0 = prec(r0)
-    rz0 = dotd(r0, z0)
-    bnorm = jnp.sqrt(jnp.maximum(dotd(b, b)[0], 0.0))
-    bnorm = jnp.where(bnorm == 0, 1.0, bnorm)
-
-    def cond(state):
-        x, r, z, p, rz, k = state
-        rnorm = jnp.sqrt(jnp.maximum(dotd(r, r)[0], 0.0))
-        return (rnorm > tol * bnorm) & (k < maxiter)
-
-    # Every dd state vector is pinned (optimization_barrier) IMMEDIATELY
-    # after its error-free update and BEFORE any reduction consumes it:
-    # when an unpinned dd pair flows into the dot-product tree, XLA's
-    # fusion rewrites the producing EFT arithmetic and silently drops
-    # lo-word accuracy (measured: the recursive residual then diverges
-    # from the true residual and the solve stalls at ~1e-6; pinned, the
-    # jitted loop matches the op-by-op fp64-shadowed run at ~1e-12).
-    pin = jax.lax.optimization_barrier
-
-    def body(state):
-        x, r, z, p, rz, k = state
-        ap = pin(matvec(p))
-        pap = dotd(p, ap)
-        alpha = pin(dd.dd_div(rz[0], rz[1], pap[0], pap[1]))
-        x = pin(axpy_dd(alpha, p, x))
-        r = pin(axpy_dd((-alpha[0], -alpha[1]), ap, r))
-        z = prec(r)
-        rz_new = dotd(r, z)
-        beta = pin(dd.dd_div(rz_new[0], rz_new[1], rz[0], rz[1]))
-        bp_h, bp_l = dd.dd_mul(p[0], p[1], beta[0], beta[1])
-        ph, plo = dd.dd_add_dd(z[0], z[1], bp_h, bp_l)
-        p = pin(jnp.stack([ph, plo]))
-        return (x, r, z, p, jnp.stack(rz_new), k + 1)
-
-    x, r, z, p, rz, k = jax.lax.while_loop(
-        cond, body,
-        (x0, r0, z0, z0, jnp.stack(rz0), jnp.int32(0)))
-    rnorm = jnp.sqrt(jnp.maximum(dotd(r, r)[0], 0.0))
-    return CgResult(x, k, rnorm, rnorm <= tol * bnorm)
-
-
-def _dd_allreduce(h, l, axis_name):
-    """Cross-shard dd sum: all_gather + error-free tree combine (a plain
-    psum of hi words would round each hop to fp32)."""
-    if axis_name is None:
-        return h, l
-    from spgpu_tpu.ops import dd
-
-    hs = jax.lax.all_gather(h, axis_name)
-    ls = jax.lax.all_gather(l, axis_name)
-    h, l = hs[0], ls[0]
-    for i in range(1, hs.shape[0]):
-        h, l = dd.dd_add_dd(h, l, hs[i], ls[i])
-    return h, l
-
-
-def cg_herm_planes(
-    matvec: Callable[[jax.Array], jax.Array],
-    b: jax.Array,
-    x0: Optional[jax.Array] = None,
-    tol: float = 1e-6,
-    maxiter: int = 1000,
-    axis_name: Optional[str] = None,
-) -> CgResult:
-    """CG for hermitian positive-definite COMPLEX systems on the plane-
-    stacked fast path: vectors are ``(2, n)`` fp32 [re, im] stacks and
-    ``matvec`` is the 4-plane-product SpMV (``ops.whell_spmv`` on a
-    :class:`~spgpu_tpu.formats.whell.WhellComplex`).  For hermitian PD
-    systems every CG scalar is real, so the iteration needs only the
-    real parts of the inner products (``Re<u,v> = ur·vr + ui·vi``).
-    ``axis_name``: inside ``shard_map``, inner products ``psum`` over
-    the mesh axis (the distributed C-precision solve)."""
-
-    def dot_re(u, v):
-        s = jnp.sum(u[0] * v[0] + u[1] * v[1])
-        return jax.lax.psum(s, axis_name) if axis_name else s
-
-    if x0 is None:
-        x0 = jnp.zeros_like(b)
-    r0 = b - matvec(x0)
-    rz0 = dot_re(r0, r0)
-    bnorm = jnp.sqrt(dot_re(b, b))
-    bnorm = jnp.where(bnorm == 0, 1.0, bnorm)
-
-    def cond(state):
-        x, r, p, rz, k = state
-        return (jnp.sqrt(jnp.maximum(rz, 0.0)) > tol * bnorm) & (k < maxiter)
-
-    def body(state):
-        x, r, p, rz, k = state
-        ap = matvec(p)
-        alpha = rz / dot_re(p, ap)
-        x = x + alpha * p
-        r = r - alpha * ap
-        rz_new = dot_re(r, r)
-        p = r + (rz_new / rz) * p
-        return (x, r, p, rz_new, k + 1)
-
-    x, r, p, rz, k = jax.lax.while_loop(
-        cond, body, (x0, r0, r0, rz0, jnp.int32(0)))
-    rnorm = jnp.sqrt(jnp.maximum(rz, 0.0))
-    return CgResult(x, k, rnorm, rnorm <= tol * bnorm)
-
-
-def cg_herm_planes_dd(
-    matvec: Callable[[jax.Array], jax.Array],
-    b: jax.Array,
-    x0: Optional[jax.Array] = None,
-    tol: float = 1e-12,
-    maxiter: int = 1000,
-    axis_name: Optional[str] = None,
-) -> CgResult:
-    """Z-precision hermitian CG: vectors are ``(2, 2, n)`` stacks
-    ([re, im] × [hi, lo]); ``matvec`` is the dd 4-plane SpMV.  All CG
-    scalars are real dd pairs; the same EFT pinning discipline as
-    :func:`cg_dd` applies.  ``axis_name``: error-free cross-shard dd
-    reductions inside ``shard_map`` (the distributed Z solve)."""
-    from spgpu_tpu.ops import dd
-
-    pin = jax.lax.optimization_barrier
-
-    def dot_re(u, v):
-        hr, lr = dd.dd_dot(u[0], v[0])
-        hi, li = dd.dd_dot(u[1], v[1])
-        h, l = dd.dd_add_dd(hr, lr, hi, li)  # real part, dd pair
-        return _dd_allreduce(h, l, axis_name)
-
-    def axpy(alpha, p, x):
-        """x + alpha*p per plane (alpha a real dd pair)."""
-        outs = []
-        for pl_ in range(2):
-            h, l = dd.dd_mul(p[pl_][0], p[pl_][1], alpha[0], alpha[1])
-            h2, l2 = dd.dd_add_dd(x[pl_][0], x[pl_][1], h, l)
-            outs.append(jnp.stack([h2, l2]))
-        return jnp.stack(outs)
-
-    if x0 is None:
-        x0 = jnp.zeros_like(b)
-    ax0 = matvec(x0)
-    r0 = jnp.stack([
-        jnp.stack(dd.dd_add_dd(b[pl_][0], b[pl_][1],
-                               -ax0[pl_][0], -ax0[pl_][1]))
-        for pl_ in range(2)])
-    rz0 = dot_re(r0, r0)
-    bnorm = jnp.sqrt(jnp.maximum(dot_re(b, b)[0], 0.0))
-    bnorm = jnp.where(bnorm == 0, 1.0, bnorm)
-
-    def cond(state):
-        x, r, p, rz, k = state
-        return (jnp.sqrt(jnp.maximum(rz[0], 0.0)) > tol * bnorm) & (k < maxiter)
-
-    def body(state):
-        x, r, p, rz, k = state
-        ap = pin(matvec(p))
-        pap = dot_re(p, ap)
-        alpha = pin(dd.dd_div(rz[0], rz[1], pap[0], pap[1]))
-        x = pin(axpy(alpha, p, x))
-        r = pin(axpy((-alpha[0], -alpha[1]), ap, r))
-        rz_new = dot_re(r, r)
-        beta = pin(dd.dd_div(rz_new[0], rz_new[1], rz[0], rz[1]))
-        p = pin(axpy(beta, p, r))
-        return (x, r, p, jnp.stack(rz_new), k + 1)
-
-    x, r, p, rz, k = jax.lax.while_loop(
-        cond, body, (x0, r0, r0, jnp.stack(rz0), jnp.int32(0)))
-    rnorm = jnp.sqrt(jnp.maximum(rz[0], 0.0))
-    return CgResult(x, k, rnorm, rnorm <= tol * bnorm)
-
-
-def bicgstab_planes(
-    matvec: Callable[[jax.Array], jax.Array],
-    b: jax.Array,
-    x0: Optional[jax.Array] = None,
-    tol: float = 1e-6,
-    maxiter: int = 1000,
-    axis_name: Optional[str] = None,
-) -> CgResult:
-    """BiCGSTAB for general (non-hermitian) COMPLEX systems on the
-    plane-stacked fast path: vectors are ``(2, n)`` fp32 [re, im] stacks
-    and ``matvec`` is the 4-plane-product SpMV (``ops.whell_spmv`` on a
-    :class:`~spgpu_tpu.formats.whell.WhellComplex`).  Krylov scalars are
-    (re, im) fp32 pairs — no complex dtype ever reaches the TPU, which
-    has no complex fp64 and lowers complex64 through slower paths.
-    Inner products are sesquilinear (``conj(u)·v``) — the C-precision
-    counterpart of the reference's Z BLAS ops (``zdot.cu:47-97``)."""
-
-    def cdot(u, v):
-        re = jnp.sum(u[0] * v[0] + u[1] * v[1])
-        im = jnp.sum(u[0] * v[1] - u[1] * v[0])
-        s = jnp.stack([re, im])
-        return jax.lax.psum(s, axis_name) if axis_name else s
-
-    def cmul(a, b2):
-        return jnp.stack([a[0] * b2[0] - a[1] * b2[1],
-                          a[0] * b2[1] + a[1] * b2[0]])
-
-    def cdiv(a, b2):
-        d = b2[0] * b2[0] + b2[1] * b2[1]
-        ds = jnp.where(d == 0, 1.0, d)
-        return jnp.stack([(a[0] * b2[0] + a[1] * b2[1]) / ds,
-                          (a[1] * b2[0] - a[0] * b2[1]) / ds])
-
-    def cvs(v, s):  # plane vector * scalar pair
-        return jnp.stack([s[0] * v[0] - s[1] * v[1],
-                          s[0] * v[1] + s[1] * v[0]])
-
-    def cabs2(a):
-        return a[0] * a[0] + a[1] * a[1]
-
-    def re_dot(u, v):
-        s = jnp.sum(u[0] * v[0] + u[1] * v[1])
-        return jax.lax.psum(s, axis_name) if axis_name else s
-
-    if x0 is None:
-        x0 = jnp.zeros_like(b)
-    r0 = b - matvec(x0)
-    rhat = r0
-    bnorm = jnp.sqrt(re_dot(b, b))
-    bnorm = jnp.where(bnorm == 0, 1.0, bnorm)
-    one = jnp.stack([jnp.float32(1.0), jnp.float32(0.0)])
-
-    def cond(s):
-        x, r, p, v, rho, alpha, omega, k, down = s
-        rnorm = jnp.sqrt(re_dot(r, r))
-        return (rnorm > tol * bnorm) & (k < maxiter) & ~down
-
-    def body(s):
-        x, r, p, v, rho, alpha, omega, k, down = s
-        rho_new = cdot(rhat, r)
-        beta = cmul(cdiv(rho_new, rho), cdiv(alpha, omega))
-        p2 = r + cvs(p - cvs(v, omega), beta)
-        v2 = matvec(p2)
-        rv = cdot(rhat, v2)
-        alpha2 = cdiv(rho_new, rv)
-        s_vec = r - cvs(v2, alpha2)
-        t = matvec(s_vec)
-        tt = re_dot(t, t)  # <t,t> is real
-        ts = cdot(t, s_vec)
-        omega2 = jnp.where(tt == 0, jnp.zeros(2, jnp.float32),
-                           ts / jnp.where(tt == 0, 1.0, tt))
-        x2 = x + cvs(p2, alpha2) + cvs(s_vec, omega2)
-        r2 = s_vec - cvs(t, omega2)
-        tiny = jnp.asarray(jnp.finfo(jnp.float32).tiny, jnp.float32)
-        down2 = ((cabs2(rho_new) < tiny)
-                 | (cabs2(rv) < tiny)
-                 | (cabs2(omega2) < tiny)
-                 | ~jnp.isfinite(re_dot(r2, r2)))
-        keep = lambda new, old: jnp.where(down2, old, new)
-        return (keep(x2, x), keep(r2, r), p2, v2, rho_new, alpha2,
-                jnp.where(down2, omega, omega2), k + 1, down2)
-
-    init = (x0, r0, jnp.zeros_like(b), jnp.zeros_like(b), one, one, one,
-            jnp.int32(0), jnp.bool_(False))
-    x, r, p, v, rho, alpha, omega, k, down = jax.lax.while_loop(
-        cond, body, init)
-    rnorm = jnp.sqrt(re_dot(r, r))
-    return CgResult(x, k, rnorm, rnorm <= tol * bnorm)
-
-
-def bicgstab_planes_dd(
-    matvec: Callable[[jax.Array], jax.Array],
-    b: jax.Array,
-    x0: Optional[jax.Array] = None,
-    tol: float = 1e-12,
-    maxiter: int = 1000,
-    axis_name: Optional[str] = None,
-) -> CgResult:
-    """Z-precision (dd-complex) BiCGSTAB: vectors are ``(2, 2, n)``
-    stacks ([re, im] × [hi, lo]); ``matvec`` is the dd 4-plane SpMV.
-    Krylov scalars are dd-complex ``(2, 2)`` stacks ([re, im] × [hi,
-    lo]); the same EFT pinning discipline as :func:`cg_dd` applies.
-    Z-coverage parity with the reference's unconditional Z instantiation
-    (``zdot.cu``, ``zaxpby.cu``)."""
-    from spgpu_tpu.ops import dd
-
-    pin = jax.lax.optimization_barrier
-
-    # --- dd-complex scalar algebra on (2, 2) [re, im] x [hi, lo] stacks
-    def zmul(a, b2):
-        rr = dd.dd_mul(a[0, 0], a[0, 1], b2[0, 0], b2[0, 1])
-        ii = dd.dd_mul(a[1, 0], a[1, 1], b2[1, 0], b2[1, 1])
-        ri = dd.dd_mul(a[0, 0], a[0, 1], b2[1, 0], b2[1, 1])
-        ir = dd.dd_mul(a[1, 0], a[1, 1], b2[0, 0], b2[0, 1])
-        re = dd.dd_add_dd(rr[0], rr[1], -ii[0], -ii[1])
-        im = dd.dd_add_dd(ri[0], ri[1], ir[0], ir[1])
-        return jnp.stack([jnp.stack(re), jnp.stack(im)])
-
-    def zdiv(a, b2):
-        # a / b = a * conj(b) / |b|^2, all dd
-        br2 = dd.dd_mul(b2[0, 0], b2[0, 1], b2[0, 0], b2[0, 1])
-        bi2 = dd.dd_mul(b2[1, 0], b2[1, 1], b2[1, 0], b2[1, 1])
-        den = dd.dd_add_dd(br2[0], br2[1], bi2[0], bi2[1])
-        dh = jnp.where(den[0] == 0, jnp.float32(1.0), den[0])
-        dl = jnp.where(den[0] == 0, jnp.float32(0.0), den[1])
-        nr1 = dd.dd_mul(a[0, 0], a[0, 1], b2[0, 0], b2[0, 1])
-        nr2 = dd.dd_mul(a[1, 0], a[1, 1], b2[1, 0], b2[1, 1])
-        nre = dd.dd_add_dd(nr1[0], nr1[1], nr2[0], nr2[1])
-        ni1 = dd.dd_mul(a[1, 0], a[1, 1], b2[0, 0], b2[0, 1])
-        ni2 = dd.dd_mul(a[0, 0], a[0, 1], b2[1, 0], b2[1, 1])
-        nim = dd.dd_add_dd(ni1[0], ni1[1], -ni2[0], -ni2[1])
-        re = dd.dd_div(nre[0], nre[1], dh, dl)
-        im = dd.dd_div(nim[0], nim[1], dh, dl)
-        return jnp.stack([jnp.stack(re), jnp.stack(im)])
-
-    def zdot(u, v):
-        # sesquilinear conj(u)·v on (2, 2, n) stacks -> (2, 2) scalar
-        rr = dd.dd_dot(u[0], v[0])
-        ii = dd.dd_dot(u[1], v[1])
-        ri = dd.dd_dot(u[0], v[1])
-        ir = dd.dd_dot(u[1], v[0])
-        re = _dd_allreduce(*dd.dd_add_dd(rr[0], rr[1], ii[0], ii[1]),
-                           axis_name)
-        im = _dd_allreduce(*dd.dd_add_dd(ri[0], ri[1], -ir[0], -ir[1]),
-                           axis_name)
-        return jnp.stack([jnp.stack(re), jnp.stack(im)])
-
-    def re_dot(u, v):
-        rr = dd.dd_dot(u[0], v[0])
-        ii = dd.dd_dot(u[1], v[1])
-        return _dd_allreduce(
-            *dd.dd_add_dd(rr[0], rr[1], ii[0], ii[1]), axis_name)[0]
-
-    def zvs(v, s):
-        """vector (2, 2, n) * dd-complex scalar (2, 2)."""
-        rr = dd.dd_mul(v[0][0], v[0][1], s[0, 0], s[0, 1])
-        ii = dd.dd_mul(v[1][0], v[1][1], s[1, 0], s[1, 1])
-        ri = dd.dd_mul(v[1][0], v[1][1], s[0, 0], s[0, 1])
-        ir = dd.dd_mul(v[0][0], v[0][1], s[1, 0], s[1, 1])
-        re = dd.dd_add_dd(rr[0], rr[1], -ii[0], -ii[1])
-        im = dd.dd_add_dd(ri[0], ri[1], ir[0], ir[1])
-        return jnp.stack([jnp.stack(re), jnp.stack(im)])
-
-    def vadd(u, v):
-        return jnp.stack([
-            jnp.stack(dd.dd_add_dd(u[p][0], u[p][1], v[p][0], v[p][1]))
-            for p in range(2)])
-
-    def vneg(u):
-        return -u
-
-    def zabs2(a):
-        return a[0, 0] * a[0, 0] + a[1, 0] * a[1, 0]
-
-    if x0 is None:
-        x0 = jnp.zeros_like(b)
-    r0 = pin(vadd(b, vneg(matvec(x0))))
-    rhat = r0
-    bnorm = jnp.sqrt(jnp.maximum(re_dot(b, b), 0.0))
-    bnorm = jnp.where(bnorm == 0, 1.0, bnorm)
-    zone = jnp.zeros((2, 2), jnp.float32).at[0, 0].set(1.0)
-
-    def cond(s):
-        x, r, p, v, rho, alpha, omega, k, down = s
-        rnorm = jnp.sqrt(jnp.maximum(re_dot(r, r), 0.0))
-        return (rnorm > tol * bnorm) & (k < maxiter) & ~down
-
-    def body(s):
-        x, r, p, v, rho, alpha, omega, k, down = s
-        rho_new = pin(zdot(rhat, r))
-        beta = zmul(zdiv(rho_new, rho), zdiv(alpha, omega))
-        p2 = pin(vadd(r, zvs(vadd(p, vneg(zvs(v, omega))), beta)))
-        v2 = pin(matvec(p2))
-        rv = pin(zdot(rhat, v2))
-        alpha2 = pin(zdiv(rho_new, rv))
-        s_vec = pin(vadd(r, vneg(zvs(v2, alpha2))))
-        t = pin(matvec(s_vec))
-        tt = re_dot(t, t)
-        ts = zdot(t, s_vec)
-        tt_safe = jnp.where(tt == 0, jnp.float32(1.0), tt)
-        om_re = dd.dd_div(ts[0, 0], ts[0, 1], tt_safe, jnp.float32(0.0))
-        om_im = dd.dd_div(ts[1, 0], ts[1, 1], tt_safe, jnp.float32(0.0))
-        omega2 = pin(jnp.where(
-            tt == 0, jnp.zeros((2, 2), jnp.float32),
-            jnp.stack([jnp.stack(om_re), jnp.stack(om_im)])))
-        x2 = pin(vadd(vadd(x, zvs(p2, alpha2)), zvs(s_vec, omega2)))
-        r2 = pin(vadd(s_vec, vneg(zvs(t, omega2))))
-        tiny = jnp.asarray(jnp.finfo(jnp.float32).tiny, jnp.float32)
-        down2 = ((zabs2(rho_new) < tiny)
-                 | (zabs2(rv) < tiny)
-                 | (zabs2(omega2) < tiny)
-                 | ~jnp.isfinite(re_dot(r2, r2)))
-        keep = lambda new, old: jnp.where(down2, old, new)
-        return (keep(x2, x), keep(r2, r), p2, v2, rho_new, alpha2,
-                jnp.where(down2, omega, omega2), k + 1, down2)
-
-    init = (x0, r0, jnp.zeros_like(b), jnp.zeros_like(b), zone, zone, zone,
-            jnp.int32(0), jnp.bool_(False))
-    x, r, p, v, rho, alpha, omega, k, down = jax.lax.while_loop(
-        cond, body, init)
-    rnorm = jnp.sqrt(jnp.maximum(re_dot(r, r), 0.0))
-    return CgResult(x, k, rnorm, rnorm <= tol * bnorm)
-
-
-def bicgstab_dd(
-    matvec: Callable[[jax.Array], jax.Array],
-    b: jax.Array,
-    x0: Optional[jax.Array] = None,
-    tol: float = 1e-12,
-    maxiter: int = 1000,
-    m_inv: Optional[jax.Array] = None,
-    axis_name: Optional[str] = None,
-) -> CgResult:
-    """BiCGSTAB in double-float arithmetic (non-symmetric fp64 systems
-    on the fp32 fast path); vectors are ``(2, n)`` hi/lo stacks.
-
-    Same dd-state pinning discipline as :func:`cg_dd` (every dd vector
-    is pinned before a reduction consumes it).  Breakdown guards follow
-    :func:`bicgstab`: a vanishing ρ/(r̂·v)/ω freezes the iterate.
-    ``axis_name``: error-free cross-shard reductions, as :func:`cg_dd`.
-    """
-    from spgpu_tpu.ops import dd
-
-    pin = jax.lax.optimization_barrier
-
-    def dotd(u, v):
-        h, l = dd.dd_dot(u, v)
-        if axis_name is None:
-            return h, l
-        hs = jax.lax.all_gather(h, axis_name)
-        ls = jax.lax.all_gather(l, axis_name)
-        h, l = hs[0], ls[0]
-        for i in range(1, hs.shape[0]):
-            h, l = dd.dd_add_dd(h, l, hs[i], ls[i])
-        return h, l
-
-    def mul_s(p, s):  # dd vector * dd scalar -> stack
-        h, l = dd.dd_mul(p[0], p[1], s[0], s[1])
-        return jnp.stack([h, l])
-
-    def add_v(u, v):
-        h, l = dd.dd_add_dd(u[0], u[1], v[0], v[1])
-        return jnp.stack([h, l])
-
-    def neg_v(u):
-        return jnp.stack([-u[0], -u[1]])
-
-    def prec(v):
-        if m_inv is None:
-            return v
-        h, l = dd.dd_mul(v[0], v[1], m_inv, jnp.zeros_like(m_inv))
-        return jnp.stack([h, l])
-
-    def div_s(a, b2):
-        return dd.dd_div(a[0], a[1], b2[0], b2[1])
-
-    def mul_ss(a, b2):
-        return dd.dd_mul(a[0], a[1], b2[0], b2[1])
-
-    if x0 is None:
-        x0 = jnp.zeros_like(b)
-    r0 = pin(add_v(b, neg_v(matvec(x0))))
-    rhat = r0
-    bnorm = jnp.sqrt(jnp.maximum(dotd(b, b)[0], 0.0))
-    bnorm = jnp.where(bnorm == 0, 1.0, bnorm)
-    one = (jnp.float32(1.0), jnp.float32(0.0))
-
-    def cond(s):
-        x, r, p, v, rho, alpha, omega, k, down = s
-        rnorm = jnp.sqrt(jnp.maximum(dotd(r, r)[0], 0.0))
-        return (rnorm > tol * bnorm) & (k < maxiter) & ~down
-
-    def body(s):
-        x, r, p, v, rho, alpha, omega, k, down = s
-        rho_new = pin(jnp.stack(dotd(rhat, r)))
-        beta = mul_ss(div_s(rho_new, rho), div_s(alpha, omega))
-        pmov = add_v(p, neg_v(mul_s(v, omega)))
-        p2 = pin(add_v(r, mul_s(pmov, beta)))
-        phat = prec(p2)
-        v2 = pin(matvec(phat))
-        rv = pin(jnp.stack(dotd(rhat, v2)))
-        alpha2 = pin(jnp.stack(div_s(rho_new, rv)))
-        s_vec = pin(add_v(r, neg_v(mul_s(v2, alpha2))))
-        shat = prec(s_vec)
-        t = pin(matvec(shat))
-        tt = dotd(t, t)
-        ts = dotd(t, s_vec)
-        omega2 = pin(jnp.stack(jnp.where(
-            tt[0] == 0,
-            jnp.stack([jnp.float32(0), jnp.float32(0)]),
-            jnp.stack(dd.dd_div(ts[0], ts[1],
-                                jnp.where(tt[0] == 0, 1.0, tt[0]), tt[1])),
-        )))
-        x2 = pin(add_v(add_v(x, mul_s(phat, alpha2)), mul_s(shat, omega2)))
-        r2 = pin(add_v(s_vec, neg_v(mul_s(t, omega2))))
-        tiny = jnp.asarray(jnp.finfo(jnp.float32).tiny, jnp.float32)
-        rr2 = dotd(r2, r2)[0]
-        down2 = ((jnp.abs(rho_new[0]) < tiny)
-                 | (jnp.abs(rv[0]) < tiny)
-                 | (jnp.abs(omega2[0]) < tiny)
-                 | ~jnp.isfinite(rr2))
-        keep = lambda new, old: jnp.where(down2, old, new)
-        return (keep(x2, x), keep(r2, r), p2, v2, rho_new,
-                jnp.stack(alpha2), jnp.where(down2, jnp.stack(omega),
-                                             jnp.stack(omega2)),
-                k + 1, down2)
-
-    init = (x0, r0, jnp.zeros_like(b), jnp.zeros_like(b),
-            jnp.stack(one), jnp.stack(one), jnp.stack(one),
-            jnp.int32(0), jnp.bool_(False))
-    x, r, p, v, rho, alpha, omega, k, down = jax.lax.while_loop(
-        cond, body, init)
-    rnorm = jnp.sqrt(jnp.maximum(dotd(r, r)[0], 0.0))
-    return CgResult(x, k, rnorm, rnorm <= tol * bnorm)
-
-
 def bicgstab(
     matvec: Callable[[jax.Array], jax.Array],
     b: jax.Array,
@@ -669,14 +107,15 @@ def bicgstab(
     m_inv: Optional[jax.Array] = None,
     axis_name: Optional[str] = None,
 ) -> CgResult:
-    """BiCGSTAB for general (non-symmetric) systems — covers the
-    non-SPD SuiteSparse matrices of the HELL config."""
+    """BiCGSTAB for general (non-symmetric, real or complex) systems —
+    covers the non-SPD SuiteSparse matrices of the HELL config.  Inner
+    products are sesquilinear for complex ``b`` (``conj(u)·v``)."""
 
     def psum(v):
         return jax.lax.psum(v, axis_name) if axis_name else v
 
     def dotp(u, v):
-        return psum(blas1.dot(u, v))
+        return psum(blas1.dot(u, v, conjugate=jnp.iscomplexobj(u)))
 
     if x0 is None:
         x0 = jnp.zeros_like(b)
@@ -687,8 +126,6 @@ def bicgstab(
 
     def prec(v):
         return v * m_inv if m_inv is not None else v
-
-    State = tuple
 
     def cond(s):
         x, r, p, v, rho, alpha, omega, k, down = s

@@ -3,6 +3,7 @@ from spgpu_tpu.utils.fixtures import (
     laplacian_2d,
     laplacian_3d,
     random_banded,
+    random_fem_like,
     random_irregular,
 )
 from spgpu_tpu.utils.timing import BenchResult, Clock, benchmark_op
@@ -12,10 +13,11 @@ __all__ = [
     "laplacian_2d",
     "laplacian_3d",
     "random_banded",
+    "random_fem_like",
     "random_irregular",
     "BenchResult",
     "Clock",
     "benchmark_op",
 ]
 
-from spgpu_tpu.utils.profiling import roofline_report, time_op, trace  # noqa: F401,E402
+from spgpu_tpu.utils.profiling import roofline_report, trace  # noqa: F401,E402

@@ -20,7 +20,6 @@ __all__ = [
     "random_irregular",
     "random_fem_like",
     "random_banded",
-    "random_mixed",
     "ctest_fixture",
 ]
 
@@ -173,33 +172,6 @@ def random_banded(
         n,
         n,
     )
-
-
-def random_mixed(
-    n: int,
-    bands: int = 11,
-    wander: int = 3,
-    extra_avg: float = 4.0,
-    span: int = 768,
-    far_frac: float = 0.02,
-    seed: int = 0,
-    dtype=np.float64,
-) -> CooMatrix:
-    """Part-banded matrix: a wandering-band stencil core plus a sparse
-    FEM-like irregular overlay — the mixed profile the HYB-class
-    decomposition exists for (``cusparsePerf.cpp:668-680``): pure WHDIA
-    pays a 128-lane slot per stray entry, pure WHELL pays 6 B/cell on
-    the ~90% banded bulk; the hybrid runs each part on its own
-    near-roofline layout."""
-    b = random_banded(n, bands=bands, wander=wander, seed=seed, dtype=dtype)
-    r = random_fem_like(n, avg_nnz_per_row=extra_avg, span=span,
-                        far_frac=far_frac, seed=seed + 1, dtype=dtype)
-    return CooMatrix(
-        np.concatenate([b.rows, r.rows]),
-        np.concatenate([b.cols, r.cols]),
-        np.concatenate([b.values, r.values]).astype(dtype),
-        n, n,
-    ).sum_duplicates()
 
 
 def ctest_fixture(dtype=np.float32) -> CooMatrix:

@@ -5,6 +5,7 @@ import numpy as np
 import pytest
 
 from spgpu_tpu import convert
+from spgpu_tpu.core import HDIA_HACK_SIZE as HS, HELL_HACK_SIZE, ROW_PITCH
 from spgpu_tpu.formats import CooMatrix
 from spgpu_tpu.utils import ctest_fixture, laplacian_2d, random_banded, random_irregular
 
@@ -43,8 +44,8 @@ def test_coo_base_index():
 def test_ell_matches_dense(coo):
     ell = convert.coo_to_ell(coo)
     np.testing.assert_allclose(ell.to_dense(), coo.to_dense(), rtol=0, atol=0)
-    # TPU tiling invariants
-    assert ell.values.shape[1] % 128 == 0
+    # row-pitch invariant
+    assert ell.values.shape[1] % ROW_PITCH == 0
     assert ell.values.shape == ell.col_indices.shape
 
 
@@ -160,13 +161,13 @@ def test_bhdia_roundtrip(coo):
 
 
 def test_parity_helpers(coo):
-    assert convert.compute_ell_alloc_pitch(coo.n_rows) % 128 == 0
+    assert convert.compute_ell_alloc_pitch(coo.n_rows) % ROW_PITCH == 0
     nd = convert.compute_dia_diagonals_count(coo)
     dia = convert.coo_to_dia(coo)
     assert nd == dia.n_diags
     counts = convert.compute_ell_row_lengths(coo)
     assert counts.sum() == coo.nnz
-    sz = convert.compute_hell_alloc_size(counts, coo.n_rows, 128, coo.dtype)
+    sz = convert.compute_hell_alloc_size(counts, coo.n_rows, HELL_HACK_SIZE)
     hell = convert.coo_to_hell(coo)
     assert sz == hell.total_slots
 
@@ -190,12 +191,12 @@ def test_hdia_hack_offsets_parity():
 
     coo = random_banded(700, bands=7, wander=5, seed=3).sum_duplicates()
     off_coo = compute_hdia_hack_offsets_from_coo(coo)
-    assert off_coo.shape == (-(-700 // 128) + 1,)
+    assert off_coo.shape == (-(-700 // HS) + 1,)
     assert (np.diff(off_coo) >= 0).all()
     # from-DIA scan agrees with the from-COO bucketing
     off_dia = compute_hdia_hack_offsets(coo_to_dia(coo))
     np.testing.assert_array_equal(off_coo, off_dia)
-    assert coo_to_hdia_size(coo) == off_coo[-1] * 128
+    assert coo_to_hdia_size(coo) == off_coo[-1] * HS
     # block count matches a dense blocking
     nb = compute_bcoo_size(coo, 4, 4)
     dense = coo.to_dense()
@@ -222,17 +223,17 @@ def test_hdia_hack_offsets_rectangular():
                                     ).sum_duplicates()
         off = compute_hdia_hack_offsets_from_coo(coo)
         # brute-force distinct (hack, diagonal) count per hack
-        h = coo.rows // 128
+        h = coo.rows // HS
         d = coo.cols.astype(np.int64) - coo.rows
         expect = np.zeros(off.size - 1, dtype=np.int64)
         for hk in range(off.size - 1):
             expect[hk] = np.unique(d[h == hk]).size
         np.testing.assert_array_equal(np.diff(off), expect)
-        assert coo_to_hdia_size(coo) == off[-1] * 128
+        assert coo_to_hdia_size(coo) == off[-1] * HS
 
 
 def test_estimate_formats_rectangular_whdia_count():
-    """suggest_format's WHDIA slab estimate must count (hack, diagonal)
+    """suggest_format's HDIA slab estimate must count (hack, diagonal)
     pairs exactly on wide matrices (key-collision regression)."""
     from spgpu_tpu.convert.select import estimate_formats
 
@@ -243,11 +244,12 @@ def test_estimate_formats_rectangular_whdia_count():
         rng.integers(0, n_rows, m), rng.integers(0, n_cols, m),
         np.ones(m), n_rows, n_cols,
     ).sum_duplicates()
+    hs = HS
     est = estimate_formats(coo)
-    h = coo.rows // 128
+    h = coo.rows // hs
     d = coo.cols.astype(np.int64) - coo.rows
     true_pairs = len({(int(a), int(b)) for a, b in zip(h, d)})
-    assert est["whdia"].bytes_per_product == true_pairs * 128 * 4
+    assert est["hdia"].bytes_per_product == true_pairs * (hs * 8 + 8)
 
 
 def test_scipy_interop():

@@ -8,6 +8,9 @@ import numpy as np
 import pytest
 
 from spgpu_tpu.io import read_mm, read_mm_properties, write_mm
+
+_BENCH = str(__import__("pathlib").Path(__file__).resolve().parents[1]
+             / "bench.py")
 from spgpu_tpu.formats import CooMatrix
 from spgpu_tpu.utils import laplacian_2d
 
@@ -133,9 +136,9 @@ def test_bench_mtx_pipeline(tmp_path):
     path.write_text("\n".join(txt))
 
     env = dict(JAX_PLATFORMS="cpu", PATH="/usr/bin:/bin",
-               HOME="/root")
+               HOME=str(tmp_path))
     out = subprocess.run(
-        [sys.executable, "/root/repo/bench.py", "--mtx", str(path),
+        [sys.executable, _BENCH, "--mtx", str(path),
          "--iters", "2", "--cg", "1e-4"],
         capture_output=True, text=True, env=env, timeout=600)
     assert out.returncode == 0, out.stderr[-2000:]
@@ -152,7 +155,7 @@ def test_bench_mtx_pipeline(tmp_path):
 
 
 def test_bench_mtx_complex(tmp_path):
-    """bench.py --mtx on a COMPLEX Matrix Market file: plane-stack x,
+    """bench.py --mtx on a COMPLEX Matrix Market file: complex x,
     complex flops accounting, complex solve residual."""
     import subprocess
     import sys
@@ -182,9 +185,10 @@ def test_bench_mtx_complex(tmp_path):
     txt[0] = txt[0].replace("general", "hermitian")
     path.write_text("\n".join(txt))
 
-    env = dict(JAX_PLATFORMS="cpu", PATH="/usr/bin:/bin", HOME="/root")
+    env = dict(JAX_PLATFORMS="cpu", PATH="/usr/bin:/bin",
+               HOME=str(tmp_path))
     out = subprocess.run(
-        [sys.executable, "/root/repo/bench.py", "--mtx", str(path),
+        [sys.executable, _BENCH, "--mtx", str(path),
          "--iters", "2", "--cg", "1e-5"],
         capture_output=True, text=True, env=env, timeout=600)
     assert out.returncode == 0, out.stderr[-2000:]

@@ -1,66 +1,37 @@
-"""Native C++ conversion-loop tests: the ctypes module must agree with
-the pure-Python fallbacks bit-for-bit (same greedy decisions)."""
+"""Native C++ Matrix Market tokenizer: the ctypes module must agree with
+the pure-NumPy fallback of :func:`spgpu_tpu.io.read_mm` exactly."""
 
 import importlib
-import os
 
 import numpy as np
 import pytest
 
 from spgpu_tpu import native
+from spgpu_tpu.io import read_mm, write_mm
 from spgpu_tpu.utils.fixtures import random_fem_like
 
 
-def test_available_and_fallback_equivalence(monkeypatch):
+def test_available_and_fallback_equivalence(monkeypatch, tmp_path):
     if not native.available():
         pytest.skip("no g++ in this environment")
-    coo = random_fem_like(3000, 12.0, span=200, far_frac=0.02, seed=9,
-                          dtype=np.float32)
-    from spgpu_tpu.convert.whell import coo_to_whell
-
-    a = coo_to_whell(coo)
-    # force the Python fallback and compare layouts semantically
+    real = random_fem_like(3000, 12.0, span=200, far_frac=0.02, seed=9)
+    cplx = type(real)(real.rows, real.cols, real.values * (1 - 0.5j),
+                      real.n_rows, real.n_cols)
+    paths = []
+    for name, coo in (("real", real), ("complex", cplx)):
+        paths.append((tmp_path / f"{name}.mtx", coo))
+        write_mm(str(paths[-1][0]), coo)
+    parsed = [read_mm(str(p)) for p, _ in paths]
+    # force the NumPy fallback and compare the parsed triples
     monkeypatch.setenv("SPGPU_TPU_NO_NATIVE", "1")
     importlib.reload(native)
     try:
-        b = coo_to_whell(coo)
+        assert not native.available()
+        fallback = [read_mm(str(p)) for p, _ in paths]
     finally:
         monkeypatch.delenv("SPGPU_TPU_NO_NATIVE")
         importlib.reload(native)
-    # first-fit packs at least as tightly as eviction rounds
-    assert a.total_slots <= b.total_slots
-    np.testing.assert_array_equal(a.to_dense(), b.to_dense())
-
-
-def test_whdia_tile_native_matches_python():
-    if not native.available():
-        pytest.skip("no g++ in this environment")
-    rng = np.random.default_rng(0)
-    hacks = np.sort(rng.integers(0, 5, 300))
-    order = np.lexsort((rng.integers(-400, 400, 300), hacks))
-    sh = hacks[order]
-    sd = np.sort(rng.integers(-400, 400, 300))
-    # per-hack ascending diagonals
-    sd = np.concatenate([np.sort(rng.integers(-400, 400, int((sh == h).sum())))
-                         for h in range(5)])
-    res = native.whdia_tile(sh, sd, 768)
-    assert res is not None
-    tos, pos, th, td = res
-    # reproduce with the Python loop
-    tile_hack_l, tile_d0_l = [], []
-    fill, cur_hack, d0 = 8, -2, 0
-    tos2 = np.empty(sh.size, np.int64)
-    pos2 = np.empty(sh.size, np.int64)
-    for i in range(sh.size):
-        h_i, d_i = sh[i], sd[i]
-        if fill == 8 or h_i != cur_hack or d_i - d0 > 768:
-            tile_hack_l.append(h_i)
-            tile_d0_l.append(d_i)
-            cur_hack, d0, fill = h_i, d_i, 0
-        tos2[i] = len(tile_hack_l) - 1
-        pos2[i] = fill
-        fill += 1
-    np.testing.assert_array_equal(tos, tos2)
-    np.testing.assert_array_equal(pos, pos2)
-    np.testing.assert_array_equal(th, np.asarray(tile_hack_l))
-    np.testing.assert_array_equal(td, np.asarray(tile_d0_l))
+    for a, b, (_, coo) in zip(parsed, fallback, paths):
+        for f in ("rows", "cols", "values"):
+            np.testing.assert_array_equal(getattr(a, f), getattr(b, f))
+        np.testing.assert_array_equal(a.values, coo.values)

@@ -39,8 +39,8 @@ def test_all_formats_agree_random(seed):
 
     converters = [
         convert.coo_to_ell, convert.coo_to_hell,
-        convert.coo_to_dia, convert.coo_to_hdia,
-        convert.coo_to_whell, convert.coo_to_whdia,
+        convert.coo_to_dia, convert.coo_to_hdia, convert.coo_to_sdia,
+        lambda c: convert.coo_to_bcoo(c, 8, 8),
     ]
     for conv in converters:
         a = conv(dedup)
@@ -58,11 +58,12 @@ def test_multi_rhs_consistency(seed):
     coo = _random_coo(rng, 300, 300, 0.03, np.float32).sum_duplicates()
     X = rng.standard_normal((4, 300)).astype(np.float32)
     hell = convert.coo_to_hell(coo)
-    whell = convert.coo_to_whell(coo)
-    z_hell = ops.hell_spmv(hell, jnp.asarray(X), impl="xla")
-    z_whell = ops.whell_spmm(whell, jnp.asarray(X))
-    np.testing.assert_allclose(np.asarray(z_hell), np.asarray(z_whell),
-                               rtol=1e-4, atol=1e-4)
+    z_hell = ops.hell_spmv(hell, jnp.asarray(X))
+    for a in (convert.coo_to_ell(coo), convert.coo_to_hdia(coo),
+              convert.coo_to_sdia(coo)):
+        z = ops.spmv(a, jnp.asarray(X))
+        np.testing.assert_allclose(np.asarray(z_hell), np.asarray(z),
+                                   rtol=1e-4, atol=1e-4)
 
 
 def test_base_index_parity():

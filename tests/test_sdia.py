@@ -1,4 +1,4 @@
-"""SDIA (static-offset DIA) — conversion + Pallas kernel (interpret mode).
+"""SDIA (static-offset DIA) — conversion + static-slice SpMV.
 
 Parity target: ``spgpu?diaspmv`` (``dia_spmv_base_template.cuh``); the
 golden is the host COO SpMV, as in the reference's ctest pattern.
@@ -80,6 +80,7 @@ def test_dia_to_sdia_matches():
     a = convert.dia_to_sdia(d)
     b = convert.coo_to_sdia(coo)
     assert a.offsets == b.offsets
+    assert a.values.shape == (7, 1500)
     np.testing.assert_array_equal(np.asarray(a.values), np.asarray(b.values))
 
 
@@ -89,7 +90,7 @@ def test_spmm_and_generic_dispatch():
     x = np.random.default_rng(8).standard_normal((3, coo.n_cols)).astype(
         np.float32)
     gold = np.stack([coo.spmv(x[r]) for r in range(3)])
-    z = np.asarray(ops.sdia_spmm(a, jnp.asarray(x)))
+    z = np.asarray(ops.sdia_spmv(a, jnp.asarray(x)))
     np.testing.assert_allclose(z, gold, rtol=0,
                                atol=5e-6 * np.abs(gold).max())
     z1 = np.asarray(ops.spmv(a, jnp.asarray(x[0])))
@@ -108,18 +109,14 @@ def test_sdia_is_pytree_leaf_static_offsets():
     assert b.offsets == a.offsets
 
 
-def test_dd_fp64():
+def test_fp64_native():
     coo = laplacian_2d(30, 30, dtype=np.float64)
     a = convert.coo_to_sdia(coo)
-    assert a.is_dd
-    from spgpu_tpu.ops import dd
-
+    assert a.values.dtype == np.float64
     x = np.random.default_rng(9).standard_normal(coo.n_cols)
     gold = coo.spmv(x)
-    xp = jnp.asarray(dd.split(x))
-    z = ops.sdia_spmv(a, xp)
-    z64 = dd.join(np.asarray(z))
-    np.testing.assert_allclose(z64, gold, rtol=0,
+    z = np.asarray(ops.sdia_spmv(a, jnp.asarray(x)))
+    np.testing.assert_allclose(z, gold, rtol=0,
                                atol=1e-13 * np.abs(gold).max())
 
 
@@ -134,10 +131,10 @@ def test_solve_auto_picks_sdia():
     # auto selection routes the stencil class to sdia
     from spgpu_tpu.convert import suggest_format
 
-    assert suggest_format(coo) == "dia"
+    assert suggest_format(coo) == "sdia"
 
 
-def test_solve_dd_sdia():
+def test_solve_fp64_sdia():
     from spgpu_tpu.solvers import solve
 
     coo = laplacian_2d(16, 16, dtype=np.float64)
@@ -147,58 +144,35 @@ def test_solve_dd_sdia():
     assert np.linalg.norm(r) / np.linalg.norm(b) < 1e-10
 
 
-def test_complex_fused_one_pass_sdia(rng):
-    """r5: the fused one-pass complex SDIA kernel (shared per-diagonal
-    x rotations, 4 fmas — ``dia_cspmv.cu:28-33`` parity) matches the
-    plane-product path and the host golden with complex alpha/beta."""
-    import jax.numpy as jnp
-
-    from spgpu_tpu import convert, ops
+def _check_complex_sdia(rng, dt):
+    """C/Z precision run the complex values natively (one complex plane,
+    ``dia_cspmv.cu``/``dia_zspmv.cu`` parity) with complex alpha/beta."""
     from spgpu_tpu.formats.coo import CooMatrix
-    from spgpu_tpu.utils.fixtures import laplacian_2d
 
     base = laplacian_2d(40, 40, np.float64)
     cm = CooMatrix(base.rows, base.cols,
                    (base.values + 1j * rng.standard_normal(base.nnz))
-                   .astype(np.complex64), base.n_rows, base.n_cols)
+                   .astype(dt), base.n_rows, base.n_cols)
     a = convert.coo_to_sdia(cm)
+    assert a.values.dtype == dt
     xc = (rng.standard_normal(cm.n_cols)
-          + 1j * rng.standard_normal(cm.n_cols)).astype(np.complex64)
-    x = jnp.asarray(np.stack([xc.real, xc.imag]).astype(np.float32))
-    yc = np.stack([rng.standard_normal(cm.n_rows),
-                   rng.standard_normal(cm.n_rows)]).astype(np.float32)
+          + 1j * rng.standard_normal(cm.n_cols)).astype(dt)
+    yc = (rng.standard_normal(cm.n_rows)
+          + 1j * rng.standard_normal(cm.n_rows)).astype(dt)
     al, be = 2 - 1j, 0.5 + 2j
-    zf = np.asarray(ops.sdia_spmv(a, x, al, be, jnp.asarray(yc)))
-    zp = np.asarray(ops.sdia_spmv(a, x, al, be, jnp.asarray(yc),
-                                  fused=False))
-    g = al * cm.spmv(xc.astype(np.complex128)) + be * (yc[0] + 1j * yc[1])
-    err = np.linalg.norm(zf[0] + 1j * zf[1] - g) / np.linalg.norm(g)
-    assert err < 2e-5, err
-    np.testing.assert_allclose(zf, zp, rtol=2e-4, atol=2e-4)
+    z = np.asarray(ops.sdia_spmv(a, jnp.asarray(xc), al, be, jnp.asarray(yc)))
+    assert z.dtype == dt
+    g = al * cm.spmv(xc.astype(np.complex128)) + be * yc
+    err = np.linalg.norm(z - g) / np.linalg.norm(g)
+    assert err < (2e-6 if dt == np.complex64 else 1e-14), err
+
+
+def test_complex_fused_one_pass_sdia(rng):
+    """complex64 SDIA runs the complex values in one pass (``dia_cspmv.cu``
+    parity)."""
+    _check_complex_sdia(rng, np.complex64)
 
 
 def test_z_fused_one_pass_sdia(rng):
-    """r5: the fused one-pass Z (complex128) SDIA kernel — 4 dd slabs,
-    shared per-diagonal window builds, 4 error-free products
-    (``dia_zspmv.cu`` parity) — matches the dd plane path and the host
-    golden at D precision."""
-    from spgpu_tpu.formats.coo import CooMatrix
-    from spgpu_tpu.utils.fixtures import laplacian_2d
-
-    base = laplacian_2d(40, 40, np.float64)
-    cm = CooMatrix(base.rows, base.cols,
-                   (base.values + 1j * rng.standard_normal(base.nnz))
-                   .astype(np.complex128), base.n_rows, base.n_cols)
-    a = convert.coo_to_sdia(cm)
-    assert a.is_dd
-    xc = rng.standard_normal(cm.n_cols) + 1j * rng.standard_normal(
-        cm.n_cols)
-    x = jnp.asarray(a.embed_complex(xc))
-    zf = np.asarray(ops.sdia_spmv(a, x))
-    zp = np.asarray(ops.sdia_spmv(a, x, fused=False))
-    np.testing.assert_allclose(zf[:, 0], zp[:, 0], rtol=1e-6, atol=1e-6)
-    g = cm.spmv(xc)
-    got = (zf[0, 0].astype(np.float64) + zf[0, 1]) \
-        + 1j * (zf[1, 0].astype(np.float64) + zf[1, 1])
-    err = np.linalg.norm(got - g) / np.linalg.norm(g)
-    assert err < 1e-13, err
+    """complex128 SDIA likewise (``dia_zspmv.cu`` parity)."""
+    _check_complex_sdia(rng, np.complex128)

@@ -5,9 +5,10 @@ Krylov loop matches the dense solve within fp64 tolerance."""
 import jax
 import jax.numpy as jnp
 import numpy as np
+import pytest
 
 from spgpu_tpu import convert, ops, solvers
-from spgpu_tpu.utils import laplacian_2d, random_banded
+from spgpu_tpu.utils import laplacian_2d, random_banded, random_fem_like
 
 
 def test_cg_laplacian_ell():
@@ -109,47 +110,76 @@ def test_high_level_solve_auto():
                                b2, atol=1e-2)
 
 
-def test_whell_forced_solve_roundtrips_permutation():
-    import jax.numpy as jnp
-
-    from spgpu_tpu.solvers import solve
-    from spgpu_tpu.utils.fixtures import random_fem_like
-
-    rng = np.random.default_rng(11)
-    coo0 = random_fem_like(1500, 10.0, span=120, far_frac=0.0, seed=12,
-                           dtype=np.float32)
-    # symmetrise + diagonal-dominate -> SPD
-    d = coo0.to_dense()
-    d = (d + d.T) / 2 + np.eye(1500) * (np.abs(d).sum(1).max() + 1)
-    rows, cols = np.nonzero(d)
+def _dominant(coo, dt, rng):
+    """``coo`` plus a per-row diagonal shift (row abs sum + 1), in ``dt``
+    (complex: random imaginary parts) — strictly diagonally dominant."""
     from spgpu_tpu.formats.coo import CooMatrix
 
-    coo = CooMatrix(rows, cols, d[rows, cols].astype(np.float32), 1500, 1500)
-    b = rng.standard_normal(1500).astype(np.float32)
-    res = solve(coo, b, fmt="whell", tol=1e-5, maxiter=3000)
-    assert bool(res.converged)
-    np.testing.assert_allclose(d @ np.asarray(res.x), b, atol=1e-2)
+    v = coo.values.astype(np.float64)
+    if np.issubdtype(dt, np.complexfloating):
+        v = v + 0.5j * rng.standard_normal(coo.nnz)
+    n = coo.n_rows
+    shift = np.bincount(coo.rows, np.abs(v), minlength=n) + 1.0
+    idx = np.arange(n)
+    return CooMatrix(np.concatenate([coo.rows, idx]),
+                     np.concatenate([coo.cols, idx]),
+                     np.concatenate([v, shift]).astype(dt), n, n
+                     ).sum_duplicates()
 
 
-def test_solve_routes_large_whell_to_blocks(monkeypatch):
-    """solve() on a whell system whose x exceeds the VMEM budget runs
-    the row-blocked packed layout (parallel/blocks.py) end-to-end."""
-    import jax.numpy as jnp
+_CLASSES = {
+    # class: (fixture, layout solve() must pick)
+    "stencil": (lambda: laplacian_2d(30, 20), "sdia"),
+    "banded": (lambda: random_banded(1500, bands=7, wander=13, seed=4),
+               "hdia"),
+    "irregular": (lambda: random_fem_like(1500, 8.0, span=200,
+                                          far_frac=0.02, seed=6), "hell"),
+}
 
-    from spgpu_tpu.solvers import auto as _auto
-    from spgpu_tpu.utils.fixtures import laplacian_2d
 
-    monkeypatch.setattr(_auto, "_BLOCKS_X_BYTES", 4096)  # force blocks
-    lap = laplacian_2d(40, 60, np.float32)
-    b = np.random.default_rng(3).standard_normal(lap.n_rows).astype(
-        np.float32)
-    res = _auto.solve(lap, b, tol=1e-5, maxiter=6000, fmt="whell")
+@pytest.mark.parametrize("dt", [np.float32, np.float64, np.complex64,
+                                np.complex128],
+                         ids=["fp32", "fp64", "c64", "c128"])
+@pytest.mark.parametrize("cls", sorted(_CLASSES))
+def test_solve_routes_by_class(cls, dt):
+    """solve(): the layout comes from the matrix's structure (never the
+    platform), the Krylov loop runs in the system's own dtype, and the
+    true residual meets the tolerance."""
+    from spgpu_tpu.convert import suggest_format
+    from spgpu_tpu.solvers import solve
+
+    rng = np.random.default_rng(21)
+    make, expect = _CLASSES[cls]
+    coo = _dominant(make(), dt, rng)
+    assert suggest_format(coo) == expect
+    b = rng.standard_normal(coo.n_rows)
+    if np.issubdtype(dt, np.complexfloating):
+        b = b + 1j * rng.standard_normal(coo.n_rows)
+    b = b.astype(dt)
+    single = dt in (np.float32, np.complex64)
+    tol = 1e-5 if single else 1e-11
+    res = solve(coo, b, symmetric=False, tol=tol, maxiter=2000)
     x = np.asarray(res.x)
-    assert np.linalg.norm(b - lap.spmv(x)) / np.linalg.norm(b) < 1e-3
+    assert x.dtype == dt
+    assert bool(res.converged)
+    r = np.linalg.norm(b - coo.spmv(x.astype(np.complex128)))
+    assert r / np.linalg.norm(b) < 10 * tol
 
-    # dd (float64) through the blocked path
-    lap64 = laplacian_2d(31, 23, np.float64)
-    b64 = np.random.default_rng(4).standard_normal(lap64.n_rows)
-    res64 = _auto.solve(lap64, b64, tol=1e-11, fmt="whell")
-    x64 = np.asarray(res64.x, np.float64)
-    assert np.linalg.norm(b64 - lap64.spmv(x64)) / np.linalg.norm(b64) < 1e-10
+
+@pytest.mark.parametrize("fmt", ["sdia", "dia", "hdia", "hell", "ell"])
+def test_solve_fmt_override(fmt):
+    """Every layout solve() can build gives the same CG solution."""
+    from spgpu_tpu.solvers import solve
+
+    lap = laplacian_2d(14, 17)
+    b = np.random.default_rng(3).standard_normal(lap.n_rows)
+    res = solve(lap, b, tol=1e-11, fmt=fmt)
+    np.testing.assert_allclose(lap.spmv(np.asarray(res.x)), b, atol=1e-9)
+
+
+def test_solve_rejects_unknown_fmt():
+    from spgpu_tpu.solvers import solve
+
+    lap = laplacian_2d(4, 4)
+    with pytest.raises(ValueError, match="unknown fmt"):
+        solve(lap, np.ones(16), fmt="whell")

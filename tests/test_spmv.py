@@ -27,9 +27,32 @@ def _mk(coo, dtype, rng):
     return coo, x.astype(dtype), y.astype(dtype)
 
 
+def _sdia(coo):
+    return convert.coo_to_sdia(coo.sum_duplicates())
+
+
+#: every SpMV format: converter and op (DIA-class layouts plain-store
+#: duplicates, so the SDIA row converts a coalesced COO like solve() does)
+FORMATS = {
+    "ell": (convert.coo_to_ell, ops.ell_spmv),
+    "oell": (lambda c: convert.ell_to_oell(convert.coo_to_ell(c)),
+             ops.ell_spmv),
+    "hell": (convert.coo_to_hell, ops.hell_spmv),
+    "hacked_oell": (lambda c: convert.coo_to_hell(
+        c, row_perm=np.asarray(
+            convert.ell_to_oell(convert.coo_to_ell(c)).row_perm)),
+        ops.hell_spmv),
+    "dia": (convert.coo_to_dia, ops.dia_spmv),
+    "hdia": (convert.coo_to_hdia, ops.hdia_spmv),
+    "sdia": (_sdia, ops.sdia_spmv),
+    "bcoo": (lambda c: convert.coo_to_bcoo(c, 8, 8), ops.bcoo_spmv),
+}
+
+
+@pytest.mark.parametrize("fmt", sorted(FORMATS))
 @pytest.mark.parametrize("name", sorted(FIX))
 @pytest.mark.parametrize("dtype", [np.float32, np.float64, np.complex64, np.complex128])
-def test_all_formats_match_golden(name, dtype, rng):
+def test_all_formats_match_golden(fmt, name, dtype, rng):
     coo, x, y = _mk(FIX[name], dtype, rng)
     alpha, beta = 1.7, -0.3
     ref = alpha * coo.spmv(x) + beta * y
@@ -37,25 +60,11 @@ def test_all_formats_match_golden(name, dtype, rng):
         tol = dict(rtol=2e-5, atol=2e-5)
     else:
         tol = dict(rtol=1e-12, atol=1e-12)
-
-    ell = convert.coo_to_ell(coo)
-    got = ops.ell_spmv(ell, jnp.asarray(x), alpha, beta, jnp.asarray(y))
-    np.testing.assert_allclose(np.asarray(got), ref, **tol)
-
-    hell = convert.coo_to_hell(coo)
-    got = ops.hell_spmv(hell, jnp.asarray(x), alpha, beta, jnp.asarray(y))
-    np.testing.assert_allclose(np.asarray(got), ref, **tol)
-
-    dia = convert.coo_to_dia(coo)
-    got = ops.dia_spmv(dia, jnp.asarray(x), alpha, beta, jnp.asarray(y))
-    np.testing.assert_allclose(np.asarray(got), ref, **tol)
-
-    hdia = convert.coo_to_hdia(coo)
-    got = ops.hdia_spmv(hdia, jnp.asarray(x), alpha, beta, jnp.asarray(y))
-    np.testing.assert_allclose(np.asarray(got), ref, **tol)
-
-    bcoo = convert.coo_to_bcoo(coo, 8, 8)
-    got = ops.bcoo_spmv(bcoo, jnp.asarray(x), alpha, beta, jnp.asarray(y))
+    conv, op = FORMATS[fmt]
+    a = conv(coo)
+    assert a.dtype == np.dtype(dtype)  # built in its own dtype, no planes
+    got = op(a, jnp.asarray(x), alpha, beta, jnp.asarray(y))
+    assert got.dtype == np.dtype(dtype)
     np.testing.assert_allclose(np.asarray(got), ref, **tol)
 
 
@@ -68,6 +77,7 @@ def test_beta_zero_never_reads_y(rng):
         (convert.coo_to_ell(coo), ops.ell_spmv),
         (convert.coo_to_hell(coo), ops.hell_spmv),
         (convert.coo_to_dia(coo), ops.dia_spmv),
+        (convert.coo_to_sdia(coo), ops.sdia_spmv),
         (convert.coo_to_hdia(coo), ops.hdia_spmv),
     ]:
         got = op(a, jnp.asarray(x), 2.0, 0.0, y_nan)
@@ -109,7 +119,9 @@ def test_spmm_multirhs(rng):
         (convert.coo_to_ell(coo), ops.ell_spmv),
         (convert.coo_to_hell(coo), ops.hell_spmv),
         (convert.coo_to_dia(coo), ops.dia_spmv),
+        (convert.coo_to_sdia(coo), ops.sdia_spmv),
         (convert.coo_to_hdia(coo), ops.hdia_spmv),
+        (convert.coo_to_bcoo(coo, 8, 8), ops.bcoo_spmv),
     ]:
         got = op(a, jnp.asarray(X))
         assert got.shape == (8, coo.n_rows)
@@ -190,23 +202,8 @@ def test_generic_spmv_dispatch():
     x = np.random.default_rng(0).standard_normal(coo.n_cols).astype(np.float32)
     ref = coo.spmv(x)
     for conv in (convert.coo_to_ell, convert.coo_to_hell, convert.coo_to_dia,
-                 convert.coo_to_hdia, convert.coo_to_whell, convert.coo_to_whdia):
+                 convert.coo_to_sdia, convert.coo_to_hdia,
+                 lambda c: convert.coo_to_bcoo(c, 4, 4)):
         a = conv(coo)
         z = ops.spmv(a, jnp.asarray(x))
         np.testing.assert_allclose(np.asarray(z), ref, rtol=2e-5, atol=2e-5)
-
-
-def test_whell_fp64_interpret():
-    """fp64 — the reference's primary precision — through the WHELL
-    kernel in interpret mode (the v5e TPU backend has no native fp64)."""
-    import jax.numpy as jnp
-
-    from spgpu_tpu.convert import coo_to_whell
-    from spgpu_tpu.ops.pallas_kernels import whell_spmv_pallas
-    from spgpu_tpu.utils.fixtures import laplacian_2d
-
-    coo = laplacian_2d(20, 22, np.float64)
-    a = coo_to_whell(coo)
-    x = np.random.default_rng(1).standard_normal(coo.n_cols)
-    z = whell_spmv_pallas(a, jnp.asarray(x), interpret=True)
-    np.testing.assert_allclose(np.asarray(z), coo.spmv(x), rtol=1e-12, atol=1e-12)
